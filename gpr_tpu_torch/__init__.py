@@ -1,0 +1,17 @@
+"""gpr_tpu_torch -- the PyTorch/CUDA port of gpr_tpu.
+
+Sparse (FITC) Gaussian process regression on an NVIDIA GPU.  The package
+keeps ``gpr_tpu``'s module layout and function names; the kernels that
+``gpr_tpu`` wrote in Pallas for the TPU are hand-written CUDA here
+(``csrc/``, built at first use), each beside a plain PyTorch twin that CPU
+tensors run.  Ported so far: the SE-iso streaming conditioning and serving
+path (``models.streaming``) and the npz model artifacts (``io``).
+"""
+
+__version__ = "0.1.0"
+
+from . import io, kernels, models, numerics, ops
+from .config import config
+
+__all__ = ["io", "kernels", "models", "numerics", "ops", "config",
+           "__version__"]

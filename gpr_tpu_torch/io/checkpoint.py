@@ -1,0 +1,106 @@
+"""Model persistence: the JAX package's versioned npz artifacts.
+
+The counterpart of ``gpr_tpu/io/checkpoint.py``, with the same schema
+(``SCHEMA_VERSION = 1``), so an artifact written by either package loads in
+the other: a flat npz with a json manifest, every leaf a named numpy array.
+Only the ``se_iso`` family is ported; its parameters are the flat arrays
+``param__log_ell`` and ``param__log_sf2``.  This module uses numpy only;
+``gpr_tpu_torch.convert.params_from_artifact`` turns an artifact into
+tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import numpy as np
+
+from ..kernels import resolve_family
+
+SCHEMA_VERSION = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelArtifact:
+    """Everything needed to serve means and (co)variances."""
+
+    family_name: str
+    kernel_params: dict  # name -> np.ndarray, e.g. {"log_ell": ..., ...}
+    inducing: np.ndarray  # inducing representation (m, dz)
+    coeffs: np.ndarray  # (m,)
+    chol_km: np.ndarray  # (m, m) upper
+    r_mat: np.ndarray  # (m, m) upper
+    sigma2: float
+    target_mean: float
+    input_means: np.ndarray  # (d,)
+    input_stddevs: np.ndarray  # (d,)
+
+    @property
+    def family(self):
+        return resolve_family(self.family_name)
+
+
+def save_model(path: str, art: ModelArtifact, extra_arrays: dict | None = None):
+    resolve_family(art.family_name)
+    params = {k: np.asarray(v) for k, v in art.kernel_params.items()}
+    manifest = {
+        "schema_version": SCHEMA_VERSION,
+        "family": art.family_name,
+        "sigma2": float(art.sigma2),
+        "target_mean": float(art.target_mean),
+        "params_static": {},
+        "params_arrays": sorted(params),
+        "extra": sorted(extra_arrays) if extra_arrays else [],
+    }
+    arrays = {
+        "inducing": np.asarray(art.inducing),
+        "coeffs": np.asarray(art.coeffs),
+        "chol_km": np.asarray(art.chol_km),
+        "r_mat": np.asarray(art.r_mat),
+        "input_means": np.asarray(art.input_means),
+        "input_stddevs": np.asarray(art.input_stddevs),
+    }
+    arrays.update({f"param__{k}": v for k, v in params.items()})
+    if extra_arrays:
+        arrays.update(
+            {f"extra__{k}": np.asarray(v) for k, v in extra_arrays.items()}
+        )
+    arrays["manifest"] = np.frombuffer(
+        json.dumps(manifest).encode(), dtype=np.uint8
+    )
+    with open(path, "wb") as fh:
+        np.savez(fh, **arrays)
+
+
+def load_model(path: str) -> tuple[ModelArtifact, dict]:
+    with np.load(path) as z:
+        manifest = json.loads(bytes(z["manifest"].tobytes()).decode())
+        if manifest["schema_version"] > SCHEMA_VERSION:
+            raise ValueError(
+                f"model schema {manifest['schema_version']} is newer than "
+                f"supported {SCHEMA_VERSION}"
+            )
+        resolve_family(manifest["family"])
+        if manifest["params_static"]:
+            raise NotImplementedError(
+                f"static kernel parameters {sorted(manifest['params_static'])}"
+                f" belong to families not ported yet"
+            )
+        art = ModelArtifact(
+            family_name=manifest["family"],
+            kernel_params={
+                name: z[f"param__{name}"]
+                for name in manifest["params_arrays"]
+            },
+            inducing=z["inducing"],
+            coeffs=z["coeffs"],
+            chol_km=z["chol_km"],
+            r_mat=z["r_mat"],
+            sigma2=manifest["sigma2"],
+            target_mean=manifest["target_mean"],
+            input_means=z["input_means"],
+            input_stddevs=z["input_stddevs"],
+        )
+        extra = {k: z[f"extra__{k}"] for k in manifest["extra"]}
+    return art, extra

@@ -1,0 +1,301 @@
+"""Streaming (blockwise) FITC evidence, conditioning and prediction.
+
+The counterpart of ``gpr_tpu/models/streaming.py``.  One pass over the rows
+reduces them to O(m^2) sufficient statistics (``StreamStats``): the
+*whitened* Gram G = sum (V sqrt(is))' (V sqrt(is)) with V = Knm U^-1, the
+m-vector u = V' (is y) and four scalars.  The factorization target is then
+I + G, whose eigenvalues are >= 1, and log|B| - log|Km| = log|I + G|.
+
+The pass runs one of three implementations (``impl``):
+
+* ``"fused_acc"`` -- the CUDA kernel behind
+  :func:`gpr_tpu_torch.ops.se_iso_stream_stats_fused_acc` (the default for
+  CUDA tensors; the counterpart of the JAX package's ``impl="pallas"``);
+* ``"fused"`` -- the per-block-partials kernel behind
+  :func:`gpr_tpu_torch.ops.se_iso_stream_stats_fused`;
+* ``"reference"`` -- the plain blocked loop of ``stream_grad._forward_scan``
+  (the default for CPU tensors, and differentiable by autograd).
+
+The kernels are forward-only until the training step is ported: the serving
+functions run under ``torch.no_grad()``, and ``streaming_log_evidence`` with
+a kernel refuses to run where autograd would need a backward.
+
+Accumulators take the model's dtype (that of ``z``): f32 models accumulate
+in compensated f32, f64 models in f64.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..numerics.linalg import (
+    cholesky_upper,
+    inv_tri_upper,
+    log_det_tri,
+    matmul,
+    rows_sqr_norm,
+    solve_tri,
+)
+from .fitc import LOG_2PI, InducingState, calc_inducing
+from .stream_grad import _forward_scan
+
+IMPLS = ("fused_acc", "fused", "reference")
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamStats:
+    """Sufficient statistics of one pass over the data (the n axis is
+    reduced away, so memory is O(m^2))."""
+
+    gram: torch.Tensor  # (m, m)  whitened: U^-T Knm' diag(is) Knm U^-1
+    u_vec: torch.Tensor  # (m,)    whitened: U^-T Knm' (is * y)
+    log_det_s: torch.Tensor  # sum log s
+    y_is_y: torch.Tensor  # y' diag(is) y
+    is_r_sum: torch.Tensor  # sum(is * r)   (variational correction)
+    n: torch.Tensor  # number of (real) rows
+
+
+def _pad_blocks(X, y, mask, block_size):
+    """(nb, B, d), (nb, B), (nb, B) views of the rows, zero-padded (mask 0)
+    up to a whole number of blocks."""
+    n = X.shape[0]
+    nb = -(-n // block_size)
+    pad = nb * block_size - n
+    if mask is None:
+        mask = torch.ones(n, dtype=X.dtype, device=X.device)
+    if pad:
+        X = torch.cat([X, X.new_zeros(pad, X.shape[1])])
+        y = torch.cat([y, y.new_zeros(pad)])
+        mask = torch.cat([mask, mask.new_zeros(pad)])
+    return (
+        X.reshape(nb, block_size, X.shape[1]),
+        y.reshape(nb, block_size),
+        mask.reshape(nb, block_size),
+    )
+
+
+def _resolve_impl(impl, X):
+    if impl is None:
+        return "fused_acc" if X.is_cuda else "reference"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; valid: {IMPLS}")
+    if impl != "reference" and not X.is_cuda:
+        raise ValueError(
+            f"impl={impl!r} is a CUDA kernel and X is on {X.device}; use "
+            f"impl='reference' for CPU tensors"
+        )
+    return impl
+
+
+def stream_stats(kernel, inducing: InducingState, sigma2, X, y, *,
+                 block_size: int = 8192, mask=None,
+                 impl: str | None = None) -> StreamStats:
+    """One pass over row blocks accumulating StreamStats.
+
+    V tiles are formed as ``knm_tile @ U^-1`` against the inverse Cholesky
+    factor, computed once.  ``mask`` (n,) of 0/1 weights excludes rows.
+    ``sigma2`` is the scalar noise variance.
+    """
+    impl = _resolve_impl(impl, X)
+    if torch.as_tensor(sigma2).ndim:
+        raise NotImplementedError(
+            "per-row sigma2 is not ported yet (ROADMAP.md, queue 1)"
+        )
+    acc = inducing.z.dtype
+    u_inv = inv_tri_upper(inducing.chol_km)
+    if impl == "reference":
+        xb, yb, maskb = _pad_blocks(X, y, mask, block_size)
+        out = _forward_scan(kernel, inducing.z, u_inv, sigma2, xb, yb, maskb,
+                            acc)
+    else:
+        # imported here: ops.fused_stats imports this module (_pad_blocks)
+        from ..ops.fused_stats import (
+            se_iso_stream_stats_fused,
+            se_iso_stream_stats_fused_acc,
+        )
+
+        if getattr(kernel, "name", None) != "se_iso":
+            raise ValueError(
+                f"impl={impl!r} supports the se_iso kernel only, got "
+                f"{getattr(kernel, 'name', kernel)}"
+            )
+        fused = (se_iso_stream_stats_fused_acc if impl == "fused_acc"
+                 else se_iso_stream_stats_fused)
+        # the kernels take row-major data (solve_triangular's result on
+        # CUDA is column-major); no copy where it already is
+        tensors = (inducing.z, u_inv, X, y,
+                   None if mask is None else mask.to(X.dtype))
+        z, u_inv, X, y, mask = (None if t is None else t.contiguous()
+                                for t in tensors)
+        out = fused(kernel.log_ell, kernel.log_sf2, z, u_inv, sigma2, X, y,
+                    mask, block_size=block_size, acc_dtype=acc)
+    return StreamStats(*out)
+
+
+def _whitened_factor(inducing, stats):
+    """Upper R~ with R~'R~ = I + G (G the whitened Gram).  Eigenvalues of the
+    target are >= 1, so this Cholesky cannot fail: no extra jitter."""
+    m = stats.gram.shape[0]
+    bt = torch.eye(m, dtype=stats.gram.dtype, device=stats.gram.device)
+    bt = bt + stats.gram
+    return cholesky_upper(bt.to(inducing.km.dtype), jitter=0.0)
+
+
+def _whitened_solve(inducing, stats: StreamStats):
+    """(r_tilde, t): the shared core of every whitened epilogue."""
+    r_tilde = _whitened_factor(inducing, stats)
+    t = solve_tri(r_tilde, stats.u_vec.to(inducing.km.dtype), trans=True)
+    return r_tilde, t
+
+
+def _evidence_terms(stats: StreamStats, r_tilde, t, *, variational):
+    """(l1, l2) in the accumulator dtype; log|B| - log|Km| = log|I + G|."""
+    acc = stats.gram.dtype
+    l1 = -0.5 * (
+        log_det_tri(r_tilde).to(acc) + stats.log_det_s + stats.n * LOG_2PI
+    )
+    if variational:
+        l1 = l1 - 0.5 * stats.is_r_sum
+    # quad = y' (S + V V')^-1 y = y_is_y - t't >= 0 mathematically; in f32 a
+    # near-singular I + G can make t't overshoot by cancellation and inflate
+    # the evidence, so clamp at the mathematical bound.
+    l2 = -0.5 * torch.clamp(stats.y_is_y - torch.dot(t, t).to(acc), min=0.0)
+    return l1, l2
+
+
+def _dewhiten(inducing, r_tilde, t):
+    """(coeffs, r_mat): R = R~ U, coeffs = U^-1 R~^-1 t."""
+    coeffs = solve_tri(inducing.chol_km, solve_tri(r_tilde, t))
+    r_mat = matmul(r_tilde, inducing.chol_km)
+    return coeffs, r_mat
+
+
+def evidence_from_stats(inducing, stats: StreamStats, *,
+                        variational: bool = False) -> torch.Tensor:
+    """l = l1 + l2 from the reduced statistics: the O(m^3) epilogue."""
+    r_tilde, t = _whitened_solve(inducing, stats)
+    l1, l2 = _evidence_terms(stats, r_tilde, t, variational=variational)
+    return (l1 + l2).to(inducing.km.dtype)
+
+
+def _needs_grad(kernel, *tensors):
+    if not torch.is_grad_enabled():
+        return False
+    leaves = [*kernel.parameters(), *tensors]
+    return any(isinstance(t, torch.Tensor) and t.requires_grad
+               for t in leaves)
+
+
+def streaming_log_evidence(kernel, z, sigma2, X, y, *,
+                           variational: bool = False, block_size: int = 8192,
+                           jitter: float | None = None,
+                           impl: str | None = None) -> torch.Tensor:
+    """FITC (or variational) log evidence at large n, O(block m + m^2)
+    memory.  Differentiable by autograd with ``impl="reference"``; the
+    kernel impls are forward-only for now."""
+    if impl not in (None, "reference") and _needs_grad(kernel, z, sigma2,
+                                                        X, y):
+        raise NotImplementedError(
+            f"impl={impl!r} has no backward kernel yet (ROADMAP.md, next "
+            f"slice: the training step); wrap the call in torch.no_grad() "
+            f"until then"
+        )
+    impl = _resolve_impl(impl, X)
+    inducing = calc_inducing(kernel, z, jitter)
+    stats = stream_stats(kernel, inducing, sigma2, X, y,
+                         block_size=block_size, impl=impl)
+    return evidence_from_stats(inducing, stats, variational=variational)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamingModelLite:
+    """The O(m^2) slice of a trained streaming model that reporting and
+    persistence need."""
+
+    inducing: InducingState
+    sigma2: torch.Tensor
+    r_mat: torch.Tensor  # (m, m) upper, de-whitened
+    l1: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamingTrained:
+    """A model conditioned on its targets; ``means`` are the posterior means
+    at the training inputs, computed blockwise."""
+
+    model: StreamingModelLite
+    y: torch.Tensor
+    coeffs: torch.Tensor
+    means: torch.Tensor
+    l: torch.Tensor
+
+
+@torch.no_grad()
+def streaming_trained(kernel, z, sigma2, X, y, *, variational=False,
+                      block_size=8192, jitter=None,
+                      impl=None) -> StreamingTrained:
+    """Condition on targets with O(block m + m^2) memory: evidence terms,
+    de-whitened factor, coefficients and training-input means."""
+    inducing = calc_inducing(kernel, z, jitter)
+    stats = stream_stats(kernel, inducing, sigma2, X, y,
+                         block_size=block_size, impl=impl)
+    dt = inducing.km.dtype
+    r_tilde, t = _whitened_solve(inducing, stats)
+    l1, l2 = _evidence_terms(stats, r_tilde, t, variational=variational)
+    coeffs, r_mat = _dewhiten(inducing, r_tilde, t)
+    means = predict_means_blocked(kernel, inducing.z, coeffs, X,
+                                  block_size=block_size)
+    return StreamingTrained(
+        model=StreamingModelLite(
+            inducing=inducing,
+            sigma2=torch.as_tensor(sigma2, dtype=dt, device=z.device),
+            r_mat=r_mat,
+            l1=l1.to(dt),
+        ),
+        y=y,
+        coeffs=coeffs,
+        means=means,
+        l=(l1 + l2).to(dt),
+    )
+
+
+@torch.no_grad()
+def streaming_coeffs(kernel, z, sigma2, X, y, *, block_size=8192,
+                     jitter=None, impl=None):
+    """Posterior mean coefficients R^-1 R^-T Knm'(is y) without
+    materializing Knm; returns (inducing, r_mat, coeffs)."""
+    inducing = calc_inducing(kernel, z, jitter)
+    stats = stream_stats(kernel, inducing, sigma2, X, y,
+                         block_size=block_size, impl=impl)
+    r_tilde, t = _whitened_solve(inducing, stats)
+    coeffs, r_mat = _dewhiten(inducing, r_tilde, t)
+    return inducing, r_mat, coeffs
+
+
+@torch.no_grad()
+def predict_means_blocked(kernel, z, coeffs, X, *, block_size=8192):
+    """Batch mean prediction, one (block, m) Ktm tile at a time."""
+    out = torch.empty(X.shape[0], dtype=coeffs.dtype, device=X.device)
+    for i in range(0, X.shape[0], block_size):
+        x_b = X[i:i + block_size]
+        out[i:i + block_size] = matmul(kernel.k_cross(x_b, z), coeffs)
+    return out
+
+
+@torch.no_grad()
+def predict_variances_blocked(kernel, z, chol_km, r_mat, X, sigma2, *,
+                              predictive=True, block_size=8192):
+    """Batch variances kt_diag - rowsq(Ktm U^-1) + rowsq(Ktm R^-1), plus
+    sigma2 when ``predictive``."""
+    u_inv = inv_tri_upper(chol_km)
+    r_inv = inv_tri_upper(r_mat)
+    out = torch.empty(X.shape[0], dtype=r_mat.dtype, device=X.device)
+    for i in range(0, X.shape[0], block_size):
+        x_b = X[i:i + block_size]
+        ktm = kernel.k_cross(x_b, z)
+        v = (kernel.k_diag(x_b) - rows_sqr_norm(matmul(ktm, u_inv))
+             + rows_sqr_norm(matmul(ktm, r_inv)))
+        out[i:i + block_size] = v + sigma2 if predictive else v
+    return out

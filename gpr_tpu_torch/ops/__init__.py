@@ -1,0 +1,3 @@
+from .fused_stats import se_iso_stream_stats_fused, se_iso_stream_stats_fused_acc
+
+__all__ = ["se_iso_stream_stats_fused", "se_iso_stream_stats_fused_acc"]

@@ -1,0 +1,110 @@
+"""Build and load the hand-written CUDA kernels of ``gpr_tpu_torch/csrc``.
+
+The sources are compiled at first use with ``nvcc`` into a shared library
+with a plain C interface, under ``gpr_tpu_torch/_build/``, and loaded with
+``ctypes``: no PyTorch headers, so a build takes seconds, not minutes.  The
+library's name carries a hash of the sources and flags, so an edit rebuilds;
+a file lock keeps concurrent processes from building the same library twice.
+
+Unlike the CSV parser's binding (``gpr_tpu/io/native.py``), nothing here
+degrades: a missing compiler, a failed build or a failed load raises, with
+the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_BUILD = _PKG / "_build"
+SOURCES = ("se_iso_stats.cu",)
+# Plain IEEE f32: no --use_fast_math (the f32 evidence is only as good as the
+# Knm / V entries).  -Xptxas -v writes registers and spills to the build log.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_STATS_ARGTYPES = [
+    _P, _P, _P, _P, _P,  # X, y, mask (or NULL), z, u_inv
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # n, d, m
+    ctypes.c_float, ctypes.c_float, ctypes.c_float,  # q, log_sf2, sigma2
+    ctypes.c_int, ctypes.c_int,  # n_ctas, tiles_per_cta
+    _P, _P, _P,  # gram_part, sums_part, stream
+]
+
+
+def _nvcc() -> str:
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.is_file():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+        "kernels of gpr_tpu_torch are built from source at first use"
+    )
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD / f"libgpr_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def _build(out: Path) -> None:
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(_CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built first if needed.  Raises on any
+    failure; a failed call is retried by the next one."""
+    out = library_path()
+    _BUILD.mkdir(exist_ok=True)
+    with open(_BUILD / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _build(out)
+    lib = ctypes.CDLL(str(out))
+    for name in ("se_iso_stats_acc", "se_iso_stats_partials"):
+        fn = getattr(lib, name)
+        fn.argtypes = _STATS_ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.se_iso_stats_rows_per_tile.argtypes = []
+    lib.se_iso_stats_rows_per_tile.restype = ctypes.c_int
+    lib.se_iso_stats_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.se_iso_stats_smem_bytes.restype = ctypes.c_longlong
+    lib.se_iso_stats_error_string.argtypes = [ctypes.c_int]
+    lib.se_iso_stats_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,204 @@
+"""Forward-statistics wrappers of gpr_tpu_torch.ops == gpr_tpu's.
+
+On the CPU each wrapper runs its plain twin.  The twins are held against
+the JAX Pallas kernels (interpret mode) in f32 inputs, at the f32
+tolerances of tests/test_pallas_stats.py, and against the JAX scan in f64
+at 1e-11.  The CUDA kernels themselves are held against the twins by the
+tests marked ``cuda`` (skipped without a GPU) and by chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpr_tpu.kernels import SeIso as JSeIso
+from gpr_tpu.models.fitc import calc_inducing as j_calc_inducing
+from gpr_tpu.models.streaming import stream_stats as j_stream_stats
+from gpr_tpu.numerics.linalg import inv_tri_upper as j_inv_tri_upper
+from gpr_tpu.ops import fused_stats as jops
+from gpr_tpu_torch.kernels import SeIso
+from gpr_tpu_torch.models.fitc import calc_inducing
+from gpr_tpu_torch.models.streaming import stream_stats, streaming_log_evidence
+from gpr_tpu_torch.numerics.linalg import inv_tri_upper
+from gpr_tpu_torch.ops import fused_stats as tops
+
+WRAPPERS = ["se_iso_stream_stats_fused_acc", "se_iso_stream_stats_fused"]
+FIELDS = ("gram", "u_vec", "log_det_s", "y_is_y", "is_r_sum", "n")
+
+
+def _setup(rng, n=300, d=3, m=8, masked=0):
+    X = rng.standard_normal((n, d))
+    y = rng.standard_normal(n)
+    Z = rng.standard_normal((m, d))
+    mask = (np.arange(n) < n - masked).astype(np.float64) if masked else None
+    return X, y, Z, mask
+
+
+def _torch_args(X, y, Z, mask, dtype, log_ell=0.3, log_sf2=0.1, sigma2=0.4):
+    t = lambda a: torch.as_tensor(a, dtype=dtype)  # noqa: E731
+    kernel = SeIso(log_ell, log_sf2, device="cpu", dtype=dtype)
+    inducing = calc_inducing(kernel, t(Z))
+    u_inv = inv_tri_upper(inducing.chol_km)
+    args = (kernel.log_ell.detach(), kernel.log_sf2.detach(), inducing.z,
+            u_inv, t(sigma2), t(X), t(y), None if mask is None else t(mask))
+    return kernel, inducing, args
+
+
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+@pytest.mark.parametrize("n", [256, 300])  # divisible and padded
+def test_twin_matches_pallas_kernel(rng, wrapper, n):
+    """The Pallas kernel (interpret, f32) against the twin on the same f32
+    inputs, at tests/test_pallas_stats.py's f32 tolerances: the twin runs
+    in f64, as the scan does there."""
+    X, y, Z, _ = _setup(rng, n=n)
+    p = JSeIso.Params(log_ell=jnp.asarray(0.3), log_sf2=jnp.asarray(0.1))
+    u_inv = j_inv_tri_upper(j_calc_inducing(JSeIso, p, jnp.asarray(Z)).chol_km)
+    # the f32 values the kernel computes on, given to both sides
+    f32 = [np.asarray(a, np.float32) for a in (Z, u_inv, 0.4, X, y)]
+    ref = getattr(jops, wrapper)(
+        p.log_ell, p.log_sf2, *(jnp.asarray(a) for a in f32),
+        block_size=64, interpret=True,
+    )
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)  # noqa: E731
+    out = getattr(tops, wrapper)(
+        t(0.3), t(0.1), *(t(a) for a in f32),
+        block_size=64, acc_dtype=torch.float64,
+    )
+    g, u, lds, yiy, isr, cnt = (o.numpy() for o in out)
+    np.testing.assert_allclose(g, np.asarray(ref[0]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(u, np.asarray(ref[1]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(lds, float(ref[2]), rtol=1e-5)
+    np.testing.assert_allclose(yiy, float(ref[3]), rtol=1e-4)
+    np.testing.assert_allclose(isr, float(ref[4]), rtol=1e-4)
+    assert int(cnt) == n
+
+
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+@pytest.mark.parametrize("n,masked", [(256, 0), (300, 0), (300, 37)])
+def test_twin_matches_scan_f64(rng, wrapper, n, masked):
+    """f64 twin == JAX stream_stats(grad_impl="ad") at 1e-11, for divisible
+    and padded n and with an explicit mask.  The absolute floor scales with
+    each output's largest entry: small Gram entries are differences of
+    large products."""
+    X, y, Z, mask = _setup(rng, n=n, m=37, masked=masked)
+    p = JSeIso.Params(log_ell=jnp.asarray(0.3), log_sf2=jnp.asarray(0.1))
+    jind = j_calc_inducing(JSeIso, p, jnp.asarray(Z))
+    ref = j_stream_stats(
+        JSeIso, p, jind, jnp.asarray(0.4), jnp.asarray(X), jnp.asarray(y),
+        block_size=64, grad_impl="ad",
+        mask=None if mask is None else jnp.asarray(mask),
+    )
+    _, _, args = _torch_args(X, y, Z, mask, torch.float64)
+    out = getattr(tops, wrapper)(*args, block_size=64,
+                                 acc_dtype=torch.float64)
+    for name, o in zip(FIELDS, out):
+        want = np.asarray(getattr(ref, name))
+        np.testing.assert_allclose(o.numpy(), want, rtol=1e-11,
+                                   atol=1e-11 * np.abs(want).max(),
+                                   err_msg=name)
+    assert int(out[-1]) == n - masked
+
+
+def test_compensated_f32_twin_matches_f64(rng):
+    """With f32 accumulators the twin carries (hi, lo) pairs: over 2048
+    one-row blocks its f32 scalars keep the per-term rounding only (about
+    1e-7), where a plain f32 running sum drifts by about sqrt(2048) ulps."""
+    X, y, Z, _ = _setup(rng, n=2048, m=8)
+    _, _, a32 = _torch_args(X, y, Z, None, torch.float32)
+    a64 = [a.double() for a in a32[:-1]] + [None]  # the same f32 values
+    comp = tops.se_iso_stream_stats_fused_acc(*a32, block_size=1,
+                                              acc_dtype=torch.float32)
+    ref = tops.se_iso_stream_stats_fused_acc(*a64, block_size=1,
+                                             acc_dtype=torch.float64)
+    for c, r in zip(comp[2:5], ref[2:5]):
+        np.testing.assert_allclose(float(c), float(r), rtol=5e-7)
+
+
+def test_kernel_impls_refuse_cpu_tensors(rng):
+    X, y, Z, _ = _setup(rng, n=64)
+    kernel, inducing, args = _torch_args(X, y, Z, None, torch.float64)
+    for impl in ("fused_acc", "fused"):
+        with pytest.raises(ValueError, match="CUDA"):
+            stream_stats(kernel, inducing, args[4], args[5], args[6],
+                         impl=impl)
+        with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+            streaming_log_evidence(kernel, args[2], args[4], args[5],
+                                   args[6], impl=impl)
+    with pytest.raises(ValueError, match="unknown impl"):
+        stream_stats(kernel, inducing, args[4], args[5], args[6],
+                     impl="pallas")
+
+
+def test_kernel_impls_refuse_autograd(rng):
+    """No silent autograd through the plain loop: a kernel impl with grad
+    enabled on a tensor that requires it raises."""
+    X, y, Z, _ = _setup(rng, n=64)
+    kernel, _, args = _torch_args(X, y, Z, None, torch.float64)
+    with pytest.raises(NotImplementedError, match="no_grad"):
+        streaming_log_evidence(kernel, args[2], args[4], args[5], args[6],
+                               impl="fused_acc")
+
+
+def test_launch_counters_stay_zero_on_cpu(rng):
+    X, y, Z, _ = _setup(rng, n=100)
+    _, _, args = _torch_args(X, y, Z, None, torch.float64)
+    before = [getattr(tops, w).launches for w in WRAPPERS]
+    for w in WRAPPERS:
+        getattr(tops, w)(*args, block_size=64, acc_dtype=torch.float64)
+    assert [getattr(tops, w).launches for w in WRAPPERS] == before == [0, 0]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+@pytest.mark.parametrize("n,masked,m", [(4096, 0, 300), (1000, 37, 37)])
+def test_cuda_kernel_matches_twin(rng, cuda_device, wrapper, n, masked, m):
+    """The f32 kernel against the f64 twin on the same (f32) inputs."""
+    X, y, Z, mask = _setup(rng, n=n, d=8, m=m, masked=masked)
+    f32 = np.float32
+    X, y, Z = X.astype(f32), y.astype(f32), Z.astype(f32)
+    _, _, args = _torch_args(X, y, Z, mask, torch.float32)
+    dev = [None if a is None else a.to(cuda_device).contiguous()
+           for a in args]
+    ref = [None if a is None else a.double() for a in dev]
+    fn = getattr(tops, wrapper)
+    before = fn.launches
+    out = fn(*dev, block_size=1024, acc_dtype=torch.float64)
+    assert fn.launches == before + 1
+    want = tops._se_iso_stats_reference(*ref, block_size=1024,
+                                        acc_dtype=torch.float64)
+    for name, o, w in zip(FIELDS, out, want):
+        err = float(torch.linalg.norm(o - w) / torch.linalg.norm(w))
+        assert err <= (1e-4 if o.ndim else 1e-5), (name, err)
+
+
+def test_build_is_keyed_by_sources_and_failure_raises(tmp_path, monkeypatch):
+    """An edited source gets a new library; a failed build raises with the
+    compiler's output, and nothing falls back to the plain twin."""
+    from gpr_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    src = (_build._CSRC / "se_iso_stats.cu").read_text()
+    (csrc / "se_iso_stats.cu").write_text(src)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    monkeypatch.setattr(_build, "_BUILD", tmp_path / "_build")
+    first = _build.library_path()
+    (csrc / "se_iso_stats.cu").write_text(src + "\n// edited\n")
+    assert _build.library_path() != first
+
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    _build.load_library.cache_clear()
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        _build.load_library()
+    assert not _build.library_path().exists()

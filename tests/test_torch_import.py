@@ -1,0 +1,48 @@
+"""gpr_tpu_torch never imports JAX: neither in its source nor at run time."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent / "gpr_tpu_torch"
+
+
+def _jax_imports(path):
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        found += [n for n in names if n == "jax" or n.startswith("jax.")
+                  or n == "gpr_tpu" or n.startswith("gpr_tpu.")]
+    return found
+
+
+def test_source_has_no_jax_import():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) >= 15
+    bad = {str(f.relative_to(PKG)): _jax_imports(f) for f in files}
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
+def test_import_loads_no_jax():
+    """Compare sys.modules before and after the import: a site hook may
+    preload modules into a fresh interpreter."""
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import gpr_tpu_torch, gpr_tpu_torch.convert\n"
+        "new = sorted(set(sys.modules) - before)\n"
+        "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'gpr_tpu')]\n"
+        "print(len(new), bad)\n"
+        "sys.exit(1 if bad or not any(m.startswith('gpr_tpu_torch.ops') "
+        "for m in new) else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
