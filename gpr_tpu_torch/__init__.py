@@ -5,13 +5,15 @@ keeps ``gpr_tpu``'s module layout and function names; the kernels that
 ``gpr_tpu`` wrote in Pallas for the TPU are hand-written CUDA here
 (``csrc/``, built at first use), each beside a plain PyTorch twin that CPU
 tensors run.  Ported so far: the SE-iso streaming conditioning and serving
-path (``models.streaming``) and the npz model artifacts (``io``).
+path (``models.streaming``), its training step (the hand VJP of
+``models.stream_grad`` and the L-BFGS ``optim.fit``) and the npz model
+artifacts (``io``).
 """
 
 __version__ = "0.1.0"
 
-from . import io, kernels, models, numerics, ops
+from . import io, kernels, models, numerics, ops, optim
 from .config import config
 
-__all__ = ["io", "kernels", "models", "numerics", "ops", "config",
+__all__ = ["io", "kernels", "models", "numerics", "ops", "optim", "config",
            "__version__"]

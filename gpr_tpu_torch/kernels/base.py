@@ -1,4 +1,5 @@
-"""Pairwise squared distances: the counterpart of ``gpr_tpu/kernels/base.py``."""
+"""Pairwise squared distances and their cotangent: the counterpart of
+``gpr_tpu/kernels/base.py``."""
 
 from __future__ import annotations
 
@@ -23,3 +24,26 @@ def sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b2 = torch.sum(torch.square(b), dim=-1)
     d2 = a2[:, None] - 2.0 * matmul(a, b.T) + b2[None, :]
     return torch.clamp(d2, min=0.0)
+
+
+def sqdist_cotangent_reduce(c: torch.Tensor, X: torch.Tensor,
+                            Z: torch.Tensor):
+    """(z_bar, c_dot_d2, c_sum) for a (bs, m) cotangent ``c`` of
+    ``sqdist(X, Z)``.
+
+    Every reduction rides one (m, bs) x (bs, d + 2) product against the
+    augmented [X | 1 | xx] (xx the row square norms): columns :d give c'X,
+    column d the column sums, column d + 1 c'xx.  Then
+
+        z_bar    = 2 (colsum(c)[:, None] * Z - c'X)
+        c_dot_d2 = sum(c . d2) = sum(c'xx) + colsum(c).zz - 2 sum((c'X) . Z)
+    """
+    xx = torch.sum(X * X, dim=1)
+    aug = torch.cat([X, torch.ones_like(xx)[:, None], xx[:, None]], dim=1)
+    caug = matmul(c.T, aug)  # (m, d + 2)
+    d = X.shape[1]
+    cX, cs, cxx = caug[:, :d], caug[:, d], caug[:, d + 1]
+    zz = torch.sum(Z * Z, dim=1)
+    c_dot_d2 = torch.sum(cxx) + torch.dot(cs, zz) - 2.0 * torch.sum(cX * Z)
+    z_bar = 2.0 * (cs[:, None] * Z - cX)
+    return z_bar, c_dot_d2, torch.sum(cs)

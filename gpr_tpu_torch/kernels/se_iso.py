@@ -4,7 +4,9 @@ k(x, y) = sf2 * exp(-||x - y||^2 / (2 ell^2)),  sf2 = exp(log_sf2).
 
 The counterpart of ``gpr_tpu/kernels/se_iso.py``.  Where the JAX family is a
 class of static methods over a params pytree, here the module holds
-``log_ell`` and ``log_sf2`` as parameters.
+``log_ell`` and ``log_sf2`` as parameters; :meth:`SeIso.of` builds a view
+whose hypers are given tensors (the optimizer's unpacked vector), so that
+autograd reaches them.
 """
 
 from __future__ import annotations
@@ -12,11 +14,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .base import sqdist
+from .base import sqdist, sqdist_cotangent_reduce
 
 
 class SeIso(nn.Module):
     name = "se_iso"
+    #: hyper fields in the order of the JAX ``Params`` pytree's sorted keys
+    param_names = ("log_ell", "log_sf2")
+    learn_inducing_default = True
 
     def __init__(self, log_ell: float = 0.0, log_sf2: float = 0.0, *,
                  device=None, dtype=None):
@@ -24,6 +29,17 @@ class SeIso(nn.Module):
         kw = {"device": device, "dtype": dtype}
         self.log_ell = nn.Parameter(torch.as_tensor(log_ell, **kw).clone())
         self.log_sf2 = nn.Parameter(torch.as_tensor(log_sf2, **kw).clone())
+
+    @classmethod
+    def of(cls, log_ell: torch.Tensor, log_sf2: torch.Tensor) -> "SeIso":
+        """A kernel whose hypers ARE ``log_ell`` and ``log_sf2`` (plain
+        tensor attributes, not fresh parameters), so gradients flow back to
+        whatever they were computed from."""
+        self = cls.__new__(cls)
+        nn.Module.__init__(self)
+        self.log_ell = log_ell
+        self.log_sf2 = log_sf2
+        return self
 
     def _k_of_d2(self, d2: torch.Tensor) -> torch.Tensor:
         inv_ell2_05 = -0.5 * torch.exp(-2.0 * self.log_ell)
@@ -43,3 +59,22 @@ class SeIso(nn.Module):
     def k_cross(self, X: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         """(n, m) cross-covariance K(X, Z)."""
         return self._k_of_d2(sqdist(X, z))
+
+    def k_cross_vjp(self, X, z, knm, knm_bar, kd_bar):
+        """Hand-fused pullback of (k_cross, k_diag) given the computed
+        ``knm`` tile: (log_ell_bar, log_sf2_bar, z_bar), plain tensors.
+
+        With a = ell^-2, q = -a/2, knm = exp(log_sf2 + q d2) and
+        c = knm_bar * knm:
+
+            log_sf2_bar = sum(c) + sf2 sum(kd_bar)
+            log_ell_bar = a sum(c . d2)
+            z_bar       = 2q (colsum(c)[:, None] * Z - c'X)
+        """
+        a = torch.exp(-2.0 * self.log_ell)
+        sf2 = torch.exp(self.log_sf2)
+        c = knm_bar * knm
+        z_core, c_dot_d2, c_sum = sqdist_cotangent_reduce(c, X, z)
+        # d2_bar = q c with scalar q = -a/2, so q factors out of z_core
+        return (a * c_dot_d2, c_sum + sf2 * torch.sum(kd_bar),
+                -0.5 * a * z_core)

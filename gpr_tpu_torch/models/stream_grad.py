@@ -1,15 +1,25 @@
-"""Forward statistics of the streaming evidence: the forward half of
+"""Streaming statistics and their hand-written VJP: the counterpart of
 ``gpr_tpu/models/stream_grad.py``.
 
-``_forward_scan`` is the plain blocked loop that the CUDA kernels of
-``ops/fused_stats.py`` are checked against, and the ``impl="reference"``
-path of ``models/streaming.py``.  The hand-written VJP
-(``make_stream_stats_cv``) comes with the training step.
+``_forward_scan`` and ``_backward_scan`` are the plain blocked loops that
+the CUDA kernels of ``ops/fused_stats.py`` are checked against, and the
+``impl="reference"`` path of ``models/streaming.py``.  ``StreamStatsFn`` is
+``make_stream_stats_cv``: a ``torch.autograd.Function`` whose forward runs
+the forward-statistics kernel (CUDA tensors) or ``_forward_scan``, and whose
+backward runs the backward kernel or ``_backward_scan`` (through the
+wrappers and twins of ``ops/fused_stats.py``).  It saves only its
+inputs: every Knm tile is recomputed in the backward, so nothing n x m is
+ever stored.
+
+The backward is the JAX package's ``bwd_variant="ug"`` schedule: the Gram
+cotangent is symmetrized once, UG = U^-1 (G-bar + G-bar') is formed once,
+and each tile's VG = Knm UG reads Knm with no serial dependency on V.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..numerics.linalg import matmul, rows_sqr_norm
 
@@ -25,6 +35,36 @@ def _two_sum(hi, lo, x):
     return s, lo + err
 
 
+def _pad_blocks(X, y, mask, block_size):
+    """(nb, B, d), (nb, B), (nb, B) views of the rows, zero-padded (mask 0)
+    up to a whole number of blocks."""
+    n = X.shape[0]
+    nb = -(-n // block_size)
+    pad = nb * block_size - n
+    if mask is None:
+        mask = torch.ones(n, dtype=X.dtype, device=X.device)
+    if pad:
+        X = torch.cat([X, X.new_zeros(pad, X.shape[1])])
+        y = torch.cat([y, y.new_zeros(pad)])
+        mask = torch.cat([mask, mask.new_zeros(pad)])
+    return (
+        X.reshape(nb, block_size, X.shape[1]),
+        y.reshape(nb, block_size),
+        mask.reshape(nb, block_size),
+    )
+
+
+def _accumulate(carry, terms, comp):
+    if comp:
+        return [_two_sum(hi, lo, t) for (hi, lo), t in zip(carry, terms)]
+    return [(hi + t, lo) for (hi, lo), t in zip(carry, terms)]
+
+
+def _zero_carry(shapes, dtype, device):
+    return [(torch.zeros(sh, dtype=dtype, device=device),
+             torch.zeros(sh, dtype=dtype, device=device)) for sh in shapes]
+
+
 def _forward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, acc_dtype):
     """Forward statistics over pre-blocked rows (nb, B, ...):
     (gram, u_vec, log_det_s, y_is_y, is_r_sum, n) in ``acc_dtype``.
@@ -35,12 +75,7 @@ def _forward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, acc_dtype):
     """
     m = z.shape[0]
     comp = acc_dtype == torch.float32
-    shapes = [(m, m), (m,), (), (), (), ()]
-    carry = [
-        (torch.zeros(sh, dtype=acc_dtype, device=z.device),
-         torch.zeros(sh, dtype=acc_dtype, device=z.device))
-        for sh in shapes
-    ]
+    carry = _zero_carry([(m, m), (m,), (), (), (), ()], acc_dtype, z.device)
     for x_b, y_b, mask_b in zip(xb, yb, maskb):
         x_b = x_b.to(z.dtype)
         y_b = y_b.to(z.dtype)
@@ -50,7 +85,7 @@ def _forward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, acc_dtype):
         v = matmul(knm, u_inv)
         r = kd - rows_sqr_norm(v)
         # padded rows are gated on both sides of every nonlinearity, as in
-        # the JAX scan body (no inf * 0 once a backward pass exists)
+        # the JAX scan body (no inf * 0 in a backward pass)
         live = mask_b > 0
         s = torch.where(live, r + sigma2, torch.ones_like(r))
         is_ = mask_b / s
@@ -67,8 +102,118 @@ def _forward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, acc_dtype):
             torch.sum(is_ * r).to(acc_dtype),
             torch.sum(mask_b).to(acc_dtype),
         )
-        if comp:
-            carry = [_two_sum(hi, lo, t) for (hi, lo), t in zip(carry, terms)]
-        else:
-            carry = [(hi + t, lo) for (hi, lo), t in zip(carry, terms)]
+        carry = _accumulate(carry, terms, comp)
     return tuple(hi + lo if comp else hi for hi, lo in carry)
+
+
+def _backward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, cot, acc_dtype,
+                   need_y=True):
+    """Pull the statistic cotangents ``cot`` = (G-bar, u-bar, lds-bar,
+    yiy-bar, isr-bar) back through the blocked rows:
+    (log_ell_bar, log_sf2_bar, z_bar, u_inv_bar, sigma2_bar) in
+    ``acc_dtype``, and the (nb, B) y cotangent (None unless ``need_y``).
+
+    The gradient carries are compensated (hi, lo) pairs when the
+    accumulators are f32, as in the forward.
+    """
+    dt = z.dtype
+    gbar, ubar, lds_bar, yiy_bar, isr_bar = cot
+    # every tile sees the same cotangents: symmetrize the Gram's once
+    gsym = (gbar + gbar.T).to(dt)
+    ubar_c, lds_c, yiy_c, isr_c = (t.to(dt)
+                                   for t in (ubar, lds_bar, yiy_bar, isr_bar))
+    u_inv_t = u_inv.T
+    ug = matmul(u_inv, gsym)
+    comp = acc_dtype == torch.float32
+    carry = _zero_carry([(), (), tuple(z.shape), tuple(u_inv.shape), ()],
+                        acc_dtype, z.device)
+    y_bar = []
+    for x_b, y_b, mask_b in zip(xb, yb, maskb):
+        x_b = x_b.to(dt)
+        y_b = y_b.to(dt)
+        mask_b = mask_b.to(dt)
+        knm = kernel.k_cross(x_b, z)
+        kd = kernel.k_diag(x_b)
+        # gram = sum (V sqrt(is))' (V sqrt(is)): with vg = V (G-bar +
+        # G-bar'), the whitened-row cotangent collapses to
+        #   V-bar += is * vg,   is-bar += 1/2 rowdot(vg, V)
+        # so the backward needs no sqrt and no whitened tile at all.
+        v = matmul(knm, u_inv)
+        vg = matmul(knm, ug)
+        r = kd - rows_sqr_norm(v)
+        live = mask_b > 0
+        s = torch.where(live, r + sigma2, torch.ones_like(r))
+        is_ = mask_b / s
+        # u_vec = sum V'(is y): V-bar += outer(is y, u-bar),
+        #                       is-bar += y * (V u-bar)
+        isy = is_ * y_b
+        vu = matmul(v, ubar_c)
+        vbar = is_[:, None] * vg + isy[:, None] * ubar_c[None, :]
+        is_bar = (y_b * vu + 0.5 * torch.sum(vg * v, dim=1)
+                  + yiy_c * y_b * y_b + isr_c * r)
+        if need_y:
+            # y enters u_vec and y_is_y only: its cotangent reuses vu
+            y_bar.append(is_ * vu + 2.0 * yiy_c * isy)
+        # is = mask/s; lds = sum mask log s; s = live ? r+sigma2 : 1
+        s_bar = (lds_c * mask_b - is_bar * is_) / s
+        s_bar_live = torch.where(live, s_bar, torch.zeros_like(s_bar))
+        r_bar = s_bar_live + isr_c * is_
+        # r = kd - rowsq(V)
+        vbar = vbar - 2.0 * v * r_bar[:, None]
+        knm_bar = matmul(vbar, u_inv_t)
+        terms = (*kernel.k_cross_vjp(x_b, z, knm, knm_bar, r_bar),
+                 matmul(knm.T, vbar), torch.sum(s_bar_live))
+        carry = _accumulate(carry, [t.to(acc_dtype) for t in terms], comp)
+    out = tuple(hi + lo if comp else hi for hi, lo in carry)
+    return (*out, torch.stack(y_bar) if need_y else None)
+
+
+class StreamStatsFn(torch.autograd.Function):
+    """(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask) -> the six
+    streaming statistics of an SE-iso model, with the hand VJP.
+
+    ``block_size`` and ``impl`` ("fused_acc", "fused" or "reference") ride
+    along as non-tensor arguments.  The kernel impls need CUDA tensors; the
+    backward of either runs the backward kernel.  The X and mask
+    cotangents are structural zeros (None); the y cotangent is exact.
+    """
+
+    @staticmethod
+    def forward(ctx, log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
+                block_size, impl):
+        # imported here: ops.fused_stats imports this module
+        from ..ops import fused_stats
+
+        ctx.save_for_backward(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask)
+        ctx.block_size, ctx.impl = block_size, impl
+        fwd = {
+            "reference": fused_stats._se_iso_stats_reference,
+            "fused_acc": fused_stats.se_iso_stream_stats_fused_acc,
+            "fused": fused_stats.se_iso_stream_stats_fused,
+        }[impl]
+        out = fwd(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
+                  block_size=block_size, acc_dtype=z.dtype)
+        ctx.mark_non_differentiable(out[-1])
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gbar, ubar, lds_bar, yiy_bar, isr_bar, _n_bar):
+        from ..ops import fused_stats
+
+        log_ell, log_sf2, z, u_inv, sigma2, X, y, mask = ctx.saved_tensors
+        need_y = ctx.needs_input_grad[6]
+        bwd = (fused_stats._se_iso_bwd_reference if ctx.impl == "reference"
+               else fused_stats.se_iso_stream_bwd_fused)
+        *grads, y_bar = bwd(
+            log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
+            gbar, ubar, lds_bar, yiy_bar, isr_bar,
+            block_size=ctx.block_size, acc_dtype=z.dtype, need_y=need_y,
+        )
+        lel, lsf, zb, uib, s2b = (
+            g.to(like.dtype)
+            for g, like in zip(grads, (log_ell, log_sf2, z, u_inv, sigma2))
+        )
+        if y_bar is not None:
+            y_bar = y_bar.to(y.dtype)
+        return lel, lsf, zb, uib, s2b, None, y_bar, None, None, None

@@ -14,11 +14,14 @@ The pass runs one of three implementations (``impl``):
 * ``"fused"`` -- the per-block-partials kernel behind
   :func:`gpr_tpu_torch.ops.se_iso_stream_stats_fused`;
 * ``"reference"`` -- the plain blocked loop of ``stream_grad._forward_scan``
-  (the default for CPU tensors, and differentiable by autograd).
+  (the default for CPU tensors).
 
-The kernels are forward-only until the training step is ported: the serving
-functions run under ``torch.no_grad()``, and ``streaming_log_evidence`` with
-a kernel refuses to run where autograd would need a backward.
+Gradients (``grad_impl``): ``"custom"`` (the default) is the hand VJP of
+``stream_grad.StreamStatsFn``, whose backward runs the backward kernel
+:func:`gpr_tpu_torch.ops.se_iso_stream_bwd_fused` for the kernel impls and
+``stream_grad._backward_scan`` for ``"reference"``; ``"ad"`` is plain
+autograd through the reference loop, kept as its cross-check.  The serving
+functions run under ``torch.no_grad()``.
 
 Accumulators take the model's dtype (that of ``z``): f32 models accumulate
 in compensated f32, f64 models in f64.
@@ -39,9 +42,10 @@ from ..numerics.linalg import (
     solve_tri,
 )
 from .fitc import LOG_2PI, InducingState, calc_inducing
-from .stream_grad import _forward_scan
+from .stream_grad import StreamStatsFn, _forward_scan, _pad_blocks
 
 IMPLS = ("fused_acc", "fused", "reference")
+GRAD_IMPLS = ("custom", "ad")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,26 +61,20 @@ class StreamStats:
     n: torch.Tensor  # number of (real) rows
 
 
-def _pad_blocks(X, y, mask, block_size):
-    """(nb, B, d), (nb, B), (nb, B) views of the rows, zero-padded (mask 0)
-    up to a whole number of blocks."""
-    n = X.shape[0]
-    nb = -(-n // block_size)
-    pad = nb * block_size - n
-    if mask is None:
-        mask = torch.ones(n, dtype=X.dtype, device=X.device)
-    if pad:
-        X = torch.cat([X, X.new_zeros(pad, X.shape[1])])
-        y = torch.cat([y, y.new_zeros(pad)])
-        mask = torch.cat([mask, mask.new_zeros(pad)])
-    return (
-        X.reshape(nb, block_size, X.shape[1]),
-        y.reshape(nb, block_size),
-        mask.reshape(nb, block_size),
-    )
-
-
-def _resolve_impl(impl, X):
+def _resolve_impl(impl, X, grad_impl="custom"):
+    if grad_impl not in GRAD_IMPLS:
+        raise ValueError(
+            f"unknown grad_impl {grad_impl!r}; valid: {GRAD_IMPLS}"
+        )
+    if grad_impl == "ad":
+        # the kernels have no autograd of their own: their gradient is the
+        # hand VJP
+        if impl not in (None, "reference"):
+            raise ValueError(
+                f"grad_impl='ad' differentiates the plain loop; "
+                f"impl={impl!r} needs grad_impl='custom'"
+            )
+        return "reference"
     if impl is None:
         return "fused_acc" if X.is_cuda else "reference"
     if impl not in IMPLS:
@@ -91,47 +89,44 @@ def _resolve_impl(impl, X):
 
 def stream_stats(kernel, inducing: InducingState, sigma2, X, y, *,
                  block_size: int = 8192, mask=None,
-                 impl: str | None = None) -> StreamStats:
+                 impl: str | None = None,
+                 grad_impl: str = "custom") -> StreamStats:
     """One pass over row blocks accumulating StreamStats.
 
     V tiles are formed as ``knm_tile @ U^-1`` against the inverse Cholesky
     factor, computed once.  ``mask`` (n,) of 0/1 weights excludes rows.
-    ``sigma2`` is the scalar noise variance.
+    ``sigma2`` is the scalar noise variance.  Differentiable with respect
+    to the kernel's hypers, ``z``, ``sigma2`` and ``y`` (see the module
+    docstring for ``grad_impl``).
     """
-    impl = _resolve_impl(impl, X)
+    impl = _resolve_impl(impl, X, grad_impl)
     if torch.as_tensor(sigma2).ndim:
         raise NotImplementedError(
             "per-row sigma2 is not ported yet (ROADMAP.md, queue 1)"
         )
-    acc = inducing.z.dtype
     u_inv = inv_tri_upper(inducing.chol_km)
-    if impl == "reference":
+    z = inducing.z
+    if grad_impl == "ad":
         xb, yb, maskb = _pad_blocks(X, y, mask, block_size)
-        out = _forward_scan(kernel, inducing.z, u_inv, sigma2, xb, yb, maskb,
-                            acc)
-    else:
-        # imported here: ops.fused_stats imports this module (_pad_blocks)
-        from ..ops.fused_stats import (
-            se_iso_stream_stats_fused,
-            se_iso_stream_stats_fused_acc,
+        return StreamStats(*_forward_scan(kernel, z, u_inv, sigma2, xb, yb,
+                                          maskb, z.dtype))
+    if getattr(kernel, "name", None) != "se_iso":
+        raise ValueError(
+            f"the streaming VJP and kernels support the se_iso kernel only, "
+            f"got {getattr(kernel, 'name', kernel)}; use grad_impl='ad'"
         )
-
-        if getattr(kernel, "name", None) != "se_iso":
-            raise ValueError(
-                f"impl={impl!r} supports the se_iso kernel only, got "
-                f"{getattr(kernel, 'name', kernel)}"
-            )
-        fused = (se_iso_stream_stats_fused_acc if impl == "fused_acc"
-                 else se_iso_stream_stats_fused)
+    sigma2 = torch.as_tensor(sigma2, dtype=z.dtype, device=z.device)
+    if impl != "reference":
         # the kernels take row-major data (solve_triangular's result on
         # CUDA is column-major); no copy where it already is
-        tensors = (inducing.z, u_inv, X, y,
-                   None if mask is None else mask.to(X.dtype))
+        if mask is not None:
+            mask = mask.to(X.dtype)
         z, u_inv, X, y, mask = (None if t is None else t.contiguous()
-                                for t in tensors)
-        out = fused(kernel.log_ell, kernel.log_sf2, z, u_inv, sigma2, X, y,
-                    mask, block_size=block_size, acc_dtype=acc)
-    return StreamStats(*out)
+                                for t in (z, u_inv, X, y, mask))
+    return StreamStats(*StreamStatsFn.apply(
+        kernel.log_ell, kernel.log_sf2, z, u_inv, sigma2, X, y, mask,
+        block_size, impl,
+    ))
 
 
 def _whitened_factor(inducing, stats):
@@ -180,32 +175,18 @@ def evidence_from_stats(inducing, stats: StreamStats, *,
     return (l1 + l2).to(inducing.km.dtype)
 
 
-def _needs_grad(kernel, *tensors):
-    if not torch.is_grad_enabled():
-        return False
-    leaves = [*kernel.parameters(), *tensors]
-    return any(isinstance(t, torch.Tensor) and t.requires_grad
-               for t in leaves)
-
-
 def streaming_log_evidence(kernel, z, sigma2, X, y, *,
                            variational: bool = False, block_size: int = 8192,
                            jitter: float | None = None,
-                           impl: str | None = None) -> torch.Tensor:
+                           impl: str | None = None,
+                           grad_impl: str = "custom") -> torch.Tensor:
     """FITC (or variational) log evidence at large n, O(block m + m^2)
-    memory.  Differentiable by autograd with ``impl="reference"``; the
-    kernel impls are forward-only for now."""
-    if impl not in (None, "reference") and _needs_grad(kernel, z, sigma2,
-                                                        X, y):
-        raise NotImplementedError(
-            f"impl={impl!r} has no backward kernel yet (ROADMAP.md, next "
-            f"slice: the training step); wrap the call in torch.no_grad() "
-            f"until then"
-        )
-    impl = _resolve_impl(impl, X)
+    memory.  Differentiable with respect to the kernel's hypers, ``z``,
+    ``sigma2`` and ``y``: the backward recomputes each Knm tile."""
     inducing = calc_inducing(kernel, z, jitter)
     stats = stream_stats(kernel, inducing, sigma2, X, y,
-                         block_size=block_size, impl=impl)
+                         block_size=block_size, impl=impl,
+                         grad_impl=grad_impl)
     return evidence_from_stats(inducing, stats, variational=variational)
 
 

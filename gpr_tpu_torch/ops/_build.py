@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``gpr_tpu_torch/csrc``.
 
-The sources are compiled at first use with ``nvcc`` into a shared library
-with a plain C interface, under ``gpr_tpu_torch/_build/``, and loaded with
-``ctypes``: no PyTorch headers, so a build takes seconds, not minutes.  The
+The sources are compiled at first use with ``nvcc`` -- one process per
+source, all started together -- and linked into one shared library with a
+plain C interface, under ``gpr_tpu_torch/_build/``, loaded with ``ctypes``:
+no PyTorch headers, so a build takes seconds, not minutes.  The
 library's name carries a hash of the sources and flags, so an edit rebuilds;
 a file lock keeps concurrent processes from building the same library twice.
 
@@ -25,12 +26,12 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("se_iso_stats.cu",)
+SOURCES = ("se_iso_stats.cu", "se_iso_bwd.cu")
 # Plain IEEE f32: no --use_fast_math (the f32 evidence is only as good as the
 # Knm / V entries).  -Xptxas -v writes registers and spills to the build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +41,15 @@ _STATS_ARGTYPES = [
     ctypes.c_float, ctypes.c_float, ctypes.c_float,  # q, log_sf2, sigma2
     ctypes.c_int, ctypes.c_int,  # n_ctas, tiles_per_cta
     _P, _P, _P,  # gram_part, sums_part, stream
+]
+_BWD_ARGTYPES = [
+    _P, _P, _P, _P,  # X, y, mask (or NULL), z
+    _P, _P, _P, _P,  # u_inv, u_inv_t, ug, ubar
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # n, d, m
+    # q, log_sf2, sigma2, lds_bar, yiy_bar, isr_bar
+    *[ctypes.c_float] * 6,
+    ctypes.c_int, ctypes.c_int,  # n_ctas, tiles_per_cta
+    _P, _P, _P, _P, _P,  # ui_part, caug_part, sums_part, y_bar, stream
 ]
 
 
@@ -70,20 +80,38 @@ def library_path() -> Path:
     return _BUILD / f"libgpr_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands side by side; (returncode, output) of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, " ".join(c) + "\n" + o)
+            for p, c, o in zip(procs, cmds, outs)]
+
+
 def _build(out: Path) -> None:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    objs = [out.with_suffix(f".{os.getpid()}.{s}.o") for s in SOURCES]
+    nvcc = _nvcc()
+    try:
+        results = _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / s)]
+            for s, o in zip(SOURCES, objs)
+        ])
+        if all(rc == 0 for rc, _ in results):
+            results += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o",
+                                  str(tmp), *map(str, objs)]])
+        log = "".join(text for _, text in results)
+        out.with_suffix(".log").write_text(log)
+        failed = [rc for rc, _ in results if rc != 0]
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
 
 
 @functools.cache
@@ -101,10 +129,15 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = _STATS_ARGTYPES
         fn.restype = ctypes.c_int
-    lib.se_iso_stats_rows_per_tile.argtypes = []
-    lib.se_iso_stats_rows_per_tile.restype = ctypes.c_int
-    lib.se_iso_stats_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.se_iso_stats_smem_bytes.restype = ctypes.c_longlong
+    lib.se_iso_bwd_acc.argtypes = _BWD_ARGTYPES
+    lib.se_iso_bwd_acc.restype = ctypes.c_int
+    for prefix in ("se_iso_stats", "se_iso_bwd"):
+        rows = getattr(lib, f"{prefix}_rows_per_tile")
+        rows.argtypes = []
+        rows.restype = ctypes.c_int
+        smem = getattr(lib, f"{prefix}_smem_bytes")
+        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem.restype = ctypes.c_longlong
     lib.se_iso_stats_error_string.argtypes = [ctypes.c_int]
     lib.se_iso_stats_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,8 +1,8 @@
-"""Fused forward statistics of the streaming SE-iso evidence.
+"""Fused statistics of the streaming SE-iso evidence and their backward.
 
 The counterpart of ``gpr_tpu/ops/fused_stats.py``.  For rows X (masked by
 ``mask``) and inducing points z, with V = Knm U^-1 and is = mask / s, both
-entries return
+forward entries return
 
     (G, u, sum log s, y' diag(is) y, sum is r, n_live)
     G = (V sqrt(is))' (V sqrt(is)),   u = V' (is y)
@@ -17,8 +17,9 @@ kernel of ``csrc/se_iso_stats.cu`` (f32 compute, built at first use by
 fallback between the two: a CUDA launch that fails raises.
 
 ``block_size`` is the number of rows reduced into one partial: one loop
-block of the twin, one CTA of the kernel (a multiple of the kernel's
-64-row tile).  Each wrapper counts its kernel launches in ``.launches``.
+block of the twin, one CTA of the kernel (a multiple of the kernel's row
+tile: 64 rows forward, 32 backward).  Each wrapper counts its kernel
+launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ from __future__ import annotations
 import torch
 
 from ..kernels.se_iso import SeIso
-from ..models.stream_grad import _forward_scan
-from ..models.streaming import _pad_blocks
+from ..models.stream_grad import _backward_scan, _forward_scan, _pad_blocks
+from ..numerics.linalg import matmul
 from ._build import load_library
 
 _BLK = 8  # edge of the kernel's Gram register blocks (csrc kBlk)
@@ -54,22 +55,28 @@ def _check(name, t, shape):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _unpack_gram(blocks, m):
-    """(nblk, 8, 8) upper blocks of the (mp, mp) Gram of [V w | w y], in
-    the kernel's row-major upper-triangle order, to (G, u)."""
-    nb8 = -(-(m + 1) // _BLK)
+def _dense_from_blocks(blocks, nb8, *, symmetric):
+    """(nblk, 8, 8) upper 8 x 8 blocks, in the kernels' row-major
+    upper-triangle order, to the dense (8 nb8, 8 nb8) matrix: mirrored
+    when ``symmetric``, else with zero blocks below the diagonal."""
     bi, bj = torch.triu_indices(nb8, nb8, device=blocks.device)
     full = torch.zeros(nb8, nb8, _BLK, _BLK, dtype=blocks.dtype,
                        device=blocks.device)
-    full[bj, bi] = blocks.mT
+    if symmetric:
+        full[bj, bi] = blocks.mT
     full[bi, bj] = blocks
-    full = full.permute(0, 2, 1, 3).reshape(nb8 * _BLK, nb8 * _BLK)
+    return full.permute(0, 2, 1, 3).reshape(nb8 * _BLK, nb8 * _BLK)
+
+
+def _unpack_gram(blocks, m):
+    """Upper blocks of the (mp, mp) Gram of [V w | w y] to (G, u)."""
+    full = _dense_from_blocks(blocks, -(-(m + 1) // _BLK), symmetric=True)
     return full[:m, :m], full[:m, m]
 
 
-def _launch(entry, comp, log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
-            block_size, acc_dtype):
-    lib = load_library()
+def _validate(lib, prefix, X, y, z, u_inv, mask, block_size):
+    """Check the tensors and the grid for the kernels named ``prefix``;
+    return (n, d, m, n_ctas, tiles_per_cta)."""
     n, d = X.shape
     m = z.shape[0]
     _check("X", X, (n, d))
@@ -80,13 +87,13 @@ def _launch(entry, comp, log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
         _check("mask", mask, (n,))
     if n == 0:
         raise ValueError("X has no rows")
-    rows = lib.se_iso_stats_rows_per_tile()
+    rows = getattr(lib, f"{prefix}_rows_per_tile")()
     if block_size <= 0 or block_size % rows:
         raise ValueError(
             f"block_size must be a positive multiple of {rows} on CUDA, got "
             f"{block_size}"
         )
-    smem = lib.se_iso_stats_smem_bytes(m, d)
+    smem = getattr(lib, f"{prefix}_smem_bytes")(m, d)
     smem_max = torch.cuda.get_device_properties(
         X.device).shared_memory_per_block_optin
     if smem > smem_max:
@@ -94,8 +101,30 @@ def _launch(entry, comp, log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
             f"m={m}, d={d} needs {smem} bytes of shared memory per block; "
             f"the device allows {smem_max}"
         )
-    tiles_per_cta = block_size // rows
-    n_ctas = -(-n // block_size)
+    return n, d, m, -(-n // block_size), block_size // rows
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: "
+            f"{lib.se_iso_stats_error_string(err).decode()} ({err})"
+        )
+
+
+def _host_scalars(device, *values):
+    """Scalars the kernels take by value, as f32 Python floats: one sync."""
+    return torch.stack([
+        torch.as_tensor(v, device=device).detach().to(torch.float64)
+        for v in values
+    ]).to(torch.float32).tolist()
+
+
+def _launch(entry, comp, log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
+            block_size, acc_dtype):
+    lib = load_library()
+    n, d, m, n_ctas, tiles_per_cta = _validate(lib, "se_iso_stats", X, y, z,
+                                               u_inv, mask, block_size)
     nb8 = -(-(m + 1) // _BLK)
     nblk = nb8 * (nb8 + 1) // 2
     pairs = 2 if comp else 1
@@ -103,14 +132,9 @@ def _launch(entry, comp, log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
                             dtype=torch.float32, device=X.device)
     sums_part = torch.empty(n_ctas, 2, 4, dtype=torch.float32,
                             device=X.device)
-    # the kernel takes [-1/(2 ell^2), log sf2, sigma2] by value: one sync
-    log_ell, log_sf2, sigma2 = (
-        torch.as_tensor(t, device=X.device).detach()
-        for t in (log_ell, log_sf2, sigma2)
-    )
-    q, lsf2, s2 = torch.stack([
-        -0.5 * torch.exp(-2.0 * log_ell), log_sf2, sigma2,
-    ]).to(torch.float32).tolist()
+    log_ell = torch.as_tensor(log_ell, device=X.device).detach()
+    q, lsf2, s2 = _host_scalars(X.device, -0.5 * torch.exp(-2.0 * log_ell),
+                                log_sf2, sigma2)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     with torch.cuda.device(X.device):
         err = getattr(lib, entry)(
@@ -120,11 +144,7 @@ def _launch(entry, comp, log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
             n_ctas, tiles_per_cta, gram_part.data_ptr(),
             sums_part.data_ptr(), stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"se_iso_stats kernel launch failed: "
-            f"{lib.se_iso_stats_error_string(err).decode()} ({err})"
-        )
+    _raise_on(lib, err, "se_iso_stats")
     # the cross-CTA reduce in f64 (hi + lo folded first): deterministic
     blocks = gram_part.to(torch.float64).sum(dim=(0, 1))
     gram, u_vec = _unpack_gram(blocks, m)
@@ -180,3 +200,107 @@ def se_iso_stream_stats_fused(log_ell, log_sf2, z, u_inv, sigma2, X, y,
 
 se_iso_stream_stats_fused_acc.launches = 0
 se_iso_stream_stats_fused.launches = 0
+
+
+@torch.no_grad()
+def _se_iso_bwd_reference(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
+                          gbar, ubar, lds_bar, yiy_bar, isr_bar, *,
+                          block_size, acc_dtype, need_y=True):
+    """Plain PyTorch twin of the backward kernel: the blocked loop of
+    ``models/stream_grad._backward_scan`` in the dtype of ``z``.  Its
+    u_inv cotangent is the full product Knm' V-bar, as in the JAX package."""
+    kernel = SeIso(log_ell, log_sf2, device=z.device, dtype=z.dtype)
+    xb, yb, maskb = _pad_blocks(X, y, mask, block_size)
+    *grads, y_bar = _backward_scan(
+        kernel, z, u_inv, sigma2, xb, yb, maskb,
+        (gbar, ubar, lds_bar, yiy_bar, isr_bar), acc_dtype, need_y,
+    )
+    return (*grads, None if y_bar is None else y_bar.reshape(-1)[:X.shape[0]])
+
+
+def _launch_bwd(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask, gbar, ubar,
+                lds_bar, yiy_bar, isr_bar, block_size, acc_dtype, need_y):
+    lib = load_library()
+    n, d, m, n_ctas, tiles_per_cta = _validate(lib, "se_iso_bwd", X, y, z,
+                                               u_inv, mask, block_size)
+    f32, f64 = torch.float32, torch.float64
+    # once per backward, outside the kernel (as the JAX wrapper does):
+    # UG = U^-1 (G-bar + G-bar'), and U^-T row-major for K-bar = V-bar U^-T
+    ug = matmul(u_inv, (gbar + gbar.mT).to(f32)).contiguous()
+    u_inv_t = u_inv.mT.contiguous()
+    ubar = ubar.to(f32).contiguous()
+    nb8 = -(-m // _BLK)
+    nblk = nb8 * (nb8 + 1) // 2
+    dev = X.device
+    ui_part = torch.empty(n_ctas, 2, nblk, _BLK, _BLK, dtype=f32, device=dev)
+    caug_part = torch.empty(n_ctas, 2, m, d + 2, dtype=f32, device=dev)
+    sums_part = torch.empty(n_ctas, 2, 2, dtype=f32, device=dev)
+    y_bar = torch.empty(n, dtype=f32, device=dev) if need_y else None
+    log_ell = torch.as_tensor(log_ell, device=dev).detach().to(f64)
+    log_sf2 = torch.as_tensor(log_sf2, device=dev).detach().to(f64)
+    scal = _host_scalars(dev, -0.5 * torch.exp(-2.0 * log_ell), log_sf2,
+                         sigma2, lds_bar, yiy_bar, isr_bar)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.se_iso_bwd_acc(
+            X.data_ptr(), y.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            z.data_ptr(), u_inv.data_ptr(), u_inv_t.data_ptr(),
+            ug.data_ptr(), ubar.data_ptr(), n, d, m, *scal,
+            n_ctas, tiles_per_cta, ui_part.data_ptr(), caug_part.data_ptr(),
+            sums_part.data_ptr(),
+            None if y_bar is None else y_bar.data_ptr(), stream,
+        )
+    _raise_on(lib, err, "se_iso_bwd")
+    # fold hi + lo and reduce across CTAs in f64; then the SE-iso pullback
+    # of kernels/se_iso.py::k_cross_vjp from c'[X | 1 | xx]
+    ui_bar = _dense_from_blocks(ui_part.to(f64).sum(dim=(0, 1)), nb8,
+                                symmetric=False)[:m, :m].triu()
+    caug = caug_part.to(f64).sum(dim=(0, 1))
+    c_x, c_s, c_xx = caug[:, :d], caug[:, d], caug[:, d + 1]
+    rbar_sum, s2_bar = sums_part.to(f64).sum(dim=(0, 1)).unbind()
+    a = torch.exp(-2.0 * log_ell)
+    z64 = z.to(f64)
+    c_dot_d2 = (torch.sum(c_xx) + torch.dot(c_s, torch.sum(z64 * z64, dim=1))
+                - 2.0 * torch.sum(c_x * z64))
+    grads = (a * c_dot_d2, torch.sum(c_s) + torch.exp(log_sf2) * rbar_sum,
+             -a * (c_s[:, None] * z64 - c_x), ui_bar, s2_bar)
+    return (*(g.to(acc_dtype) for g in grads),
+            None if y_bar is None else y_bar.to(acc_dtype))
+
+
+def se_iso_stream_bwd_fused(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
+                            gbar, ubar, lds_bar, yiy_bar, isr_bar, *,
+                            block_size=8192, acc_dtype=torch.float32,
+                            need_y=True):
+    """Backward of the fused statistics: the cotangents (G-bar, u-bar,
+    lds-bar, yiy-bar, isr-bar) of ``se_iso_stream_stats_fused_acc``'s
+    outputs pulled back to
+
+        (log_ell_bar, log_sf2_bar, z_bar, u_inv_bar, sigma2_bar, y_bar)
+
+    in ``acc_dtype``; ``y_bar`` (n,) is None unless ``need_y``.
+
+    On CUDA every CTA walks its ``block_size`` rows in 32-row tiles,
+    recomputes Knm, V = Knm U^-1 and VG = Knm UG, chains the cotangents and
+    carries two-sum (hi, lo) partials of u_inv_bar, of c'[X | 1 | xx]
+    (c = K-bar * Knm, the SE-iso pullback's one reduction) and of the
+    scalars; the wrapper folds and sums them in f64.  ``u_inv`` must be
+    upper triangular, and the kernel returns only the upper triangle of
+    u_inv_bar (zero below): the triangular solve that forms U^-1 reads only
+    that triangle of its cotangent.  The twin returns the full product.
+    """
+    if not X.is_cuda:
+        return _se_iso_bwd_reference(
+            log_ell, log_sf2, z, u_inv, sigma2, X, y, mask, gbar, ubar,
+            lds_bar, yiy_bar, isr_bar, block_size=block_size,
+            acc_dtype=acc_dtype, need_y=need_y,
+        )
+    out = _launch_bwd(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask, gbar,
+                      ubar, lds_bar, yiy_bar, isr_bar, block_size, acc_dtype,
+                      need_y)
+    se_iso_stream_bwd_fused.launches += 1
+    return out
+
+
+se_iso_stream_bwd_fused.launches = 0

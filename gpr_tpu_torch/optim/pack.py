@@ -1,0 +1,79 @@
+"""Hyperparameter packing: a kernel module, z and sigma2 <-> one flat
+optimization vector.  The counterpart of ``gpr_tpu/optim/pack.py``.
+
+The vector layout is the JAX package's, so a packed vector means the same
+thing in both: coordinate 0 is log(sigma2) when ``learn_sigma2``, then the
+selected kernel hypers in sorted field order (``ravel_pytree`` sorts dict
+keys: for SE-iso ``log_ell``, ``log_sf2``), then the inducing coordinates
+row-major when ``learn_inducing``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Sequence
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class HyperPack:
+    x0: torch.Tensor
+    #: x -> (kernel, z, sigma2), each a differentiable function of x
+    unpack: Callable[[torch.Tensor], tuple[Any, torch.Tensor, torch.Tensor]]
+    n_hypers: int
+    learn_sigma2: bool
+    learn_inducing: bool = True
+    fixed: tuple = ()
+
+
+def make_pack(kernel, z0, sigma2_0, *, learn_sigma2: bool = True,
+              learn_inducing: bool | None = None,
+              fixed: Sequence[str] = ()) -> HyperPack:
+    """Build the pack for (kernel's hypers, z0, sigma2_0).
+
+    ``learn_inducing`` defaults per kernel class; ``fixed`` names hyper
+    fields to hold at the kernel's values.  ``unpack(x)`` returns a kernel
+    view (``type(kernel).of``) whose hypers are slices of ``x``, so
+    autograd reaches ``x`` through every field.
+    """
+    cls = type(kernel)
+    if learn_inducing is None:
+        learn_inducing = cls.learn_inducing_default
+    fixed = set(fixed)
+    unknown = fixed - set(cls.param_names)
+    if unknown:
+        raise ValueError(f"unknown hyper fields {sorted(unknown)}; "
+                         f"{cls.name} has {list(cls.param_names)}")
+    values0 = {name: getattr(kernel, name).detach()
+               for name in cls.param_names}
+    free = sorted(set(cls.param_names) - fixed)
+    pieces = [values0[name].reshape(-1) for name in free]
+    if learn_inducing:
+        pieces.append(z0.detach().reshape(-1))
+    dtype = pieces[0].dtype if pieces else torch.as_tensor(sigma2_0).dtype
+    device = z0.device
+    vec = (torch.cat([p.to(dtype) for p in pieces]) if pieces
+           else torch.zeros(0, dtype=dtype, device=device))
+    sigma2_0 = torch.as_tensor(sigma2_0, dtype=dtype, device=device)
+    x0 = torch.cat([torch.log(sigma2_0)[None], vec]) if learn_sigma2 else vec
+
+    def unpack(x):
+        if learn_sigma2:
+            sigma2, rest = torch.exp(x[0]), x[1:]
+        else:
+            sigma2, rest = sigma2_0, x
+        values = dict(values0)
+        at = 0
+        for name in free:
+            k = values0[name].numel()
+            values[name] = rest[at:at + k].reshape(values0[name].shape)
+            at += k
+        z = rest[at:].reshape(z0.shape) if learn_inducing else z0
+        return cls.of(**values), z, sigma2
+
+    return HyperPack(
+        x0=x0, unpack=unpack, n_hypers=int(x0.shape[0]),
+        learn_sigma2=learn_sigma2, learn_inducing=bool(learn_inducing),
+        fixed=tuple(sorted(fixed)),
+    )

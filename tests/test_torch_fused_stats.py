@@ -131,13 +131,22 @@ def test_kernel_impls_refuse_cpu_tensors(rng):
 
 
 def test_kernel_impls_refuse_autograd(rng):
-    """No silent autograd through the plain loop: a kernel impl with grad
-    enabled on a tensor that requires it raises."""
+    """No autograd through the kernels: their gradient is the hand VJP, so a
+    kernel impl with grad_impl="ad" raises, while grad_impl="custom" (the
+    default) takes a tensor that requires grad (and here only trips on the
+    CPU tensors)."""
     X, y, Z, _ = _setup(rng, n=64)
     kernel, _, args = _torch_args(X, y, Z, None, torch.float64)
-    with pytest.raises(NotImplementedError, match="no_grad"):
+    for impl in ("fused_acc", "fused"):
+        with pytest.raises(ValueError, match="grad_impl='custom'"):
+            streaming_log_evidence(kernel, args[2], args[4], args[5],
+                                   args[6], impl=impl, grad_impl="ad")
+        with pytest.raises(ValueError, match="CUDA"):
+            streaming_log_evidence(kernel, args[2], args[4], args[5],
+                                   args[6], impl=impl)
+    with pytest.raises(ValueError, match="unknown grad_impl"):
         streaming_log_evidence(kernel, args[2], args[4], args[5], args[6],
-                               impl="fused_acc")
+                               grad_impl="pallas")
 
 
 def test_launch_counters_stay_zero_on_cpu(rng):
@@ -186,8 +195,9 @@ def test_build_is_keyed_by_sources_and_failure_raises(tmp_path, monkeypatch):
 
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    src = (_build._CSRC / "se_iso_stats.cu").read_text()
-    (csrc / "se_iso_stats.cu").write_text(src)
+    for name in _build.SOURCES:
+        (csrc / name).write_text((_build._CSRC / name).read_text())
+    src = (csrc / "se_iso_stats.cu").read_text()
     monkeypatch.setattr(_build, "_CSRC", csrc)
     monkeypatch.setattr(_build, "_BUILD", tmp_path / "_build")
     first = _build.library_path()
