@@ -36,11 +36,28 @@ Phases, each printed on its own line:
    recipe (yf = sin(X (0.3 k + 0.2)) + 0.3 noise, the noise drawn here;
    pack from log_ell 0.5, sigma2 1.0; variational): finite, with a mean NLL
    that decreases, through both kernels.
+8. roofline -- the GEMM-chain kernel (csrc/gemm_chain.cu, the roofline
+   probe's k_chain): within 1e-5 relative (Frobenius) of its f64 twin at
+   65,536 rows for (m, reps) = (384, 1), (384, 4), (300, 3); then the
+   probe's leg-1 shapes (m = 384; 977 x 1,024 rows with reps 1, 488 x 2,048
+   rows with reps 1 and 4) and bench.py's ceiling shape (m = 300, 61 x
+   16,384 rows, reps 3), each timed with CUDA events beside its bound and
+   the same chain as torch.matmul calls (TF32 off; TF32 on for information).
+9. restarts -- bench.py's training leg: ``optim.fit_restarts`` over the
+   log-lengthscale ladder (-1.5, -0.5, 0.5, 1.5), 12 probe iterations,
+   max_iter 60, epsabs 1e-4, rescore_f64 20,000 rows, block 8,192 (not
+   16,384, see 6), then ``optim.polish`` in f64 on the card (20,000 rows,
+   30 iterations, epsabs 1e-3).  Both statistics kernels launched, every
+   probe and rescored value finite, the winner's mean NLL below its start,
+   the polish's gradient norm below its start.
 Timings: median of 5 after a warm-up, host clock around synchronised
-calls.
+calls, or CUDA events where named.
 
-The line before the last is a JSON object of the kernels; the last line is
-``{"ok": true, "device": {...}}``.  Any failed check raises (exit code 1).
+The line before the last is a JSON object of the kernels (each with its
+bound: the larger of its flops at the 67 TFLOP/s FP32 peak and its bytes,
+each input read and each output written once, at 3.35 TB/s); the last line
+is ``{"ok": true, "device": {...}}``.  Any failed check raises (exit code
+1).
 """
 
 from __future__ import annotations
@@ -60,7 +77,11 @@ from gpr_tpu_torch.models import streaming
 from gpr_tpu_torch.models.fitc import calc_inducing
 from gpr_tpu_torch.numerics.linalg import inv_tri_upper
 from gpr_tpu_torch.ops import _build, fused_stats
-from gpr_tpu_torch.optim import fit, make_pack
+from gpr_tpu_torch.ops.gemm_chain import (
+    _gemm_chain_reference,
+    gemm_chain,
+)
+from gpr_tpu_torch.optim import fit, fit_restarts, make_pack, polish
 
 N, D, M = 1_000_000, 8, 300
 LOG_ELL, LOG_SF2, SIGMA2, JITTER = 0.5, 0.0, 0.1, 1e-6
@@ -74,7 +95,15 @@ KERNELS = {  # forward wrapper -> the Pallas body it replaces
 }
 BWD_KERNEL = "se_iso_stream_bwd_fused"
 BWD_REPLACES = "gpr_tpu/ops/fused_stats.py:341"
-COUNTED = (*KERNELS, BWD_KERNEL)
+CHAIN_SOURCE = "gpr_tpu_torch/csrc/gemm_chain.cu"
+CHAIN_REPLACES = "probes/r3_roofline_probe.py:98"
+WRAPPERS = {  # every launch-counted wrapper, by name
+    **{name: getattr(fused_stats, name) for name in (*KERNELS, BWD_KERNEL)},
+    "gemm_chain": gemm_chain,
+}
+PEAK_FP32 = 67e12  # FLOP/s outside the tensor cores (H100 SXM data sheet)
+HBM = 3.35e12  # bytes/s
+LADDER = (-1.5, -0.5, 0.5, 1.5)  # bench.py's fit_restarts ladder
 FIELDS = ("G", "u", "sum_log_s", "y_is_y", "is_r", "n_live")
 BWD_FIELDS = ("log_ell", "log_sf2", "z", "u_inv", "sigma2", "y")
 
@@ -250,15 +279,61 @@ def median_ms(fn, reps=5) -> float:
     return statistics.median(times)
 
 
+def event_ms(fn, reps=5) -> float:
+    """CUDA events around each call: median of ``reps`` after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the flops at the
+    FP32 peak and the bytes at the HBM rate."""
+    t_ops, t_bytes = 1e3 * flops / PEAK_FP32, 1e3 * nbytes / HBM
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def stats_bound(n, d, m) -> dict:
+    """Forward statistics over n live rows: per row m d (x z'), m (m + 1)/2
+    (V against the upper-triangular U^-1), m (m + 1)/2 (the symmetric Gram)
+    and m (u) FMAs; X, y, z and U^-1 read, G, u and 4 scalars written."""
+    fma = n * (m * d + m * (m + 1) + m)
+    return bound(2.0 * fma, 4.0 * (n * (d + 1) + m * d + 2 * m * m + m + 4))
+
+
+def bwd_bound(n, d, m) -> dict:
+    """The backward tile over n rows: per row m d (Knm), m (m + 1)/2 (V),
+    m^2 (VG), m (m + 1)/2 (Kb against U^-T), m (m + 1)/2 (the upper
+    triangle of Knm' Vb) and m (d + 2) (the pullback) FMAs; X, y, z, U^-1,
+    U^-T, UG and u-bar read, z-bar, U^-1-bar and 3 scalars written."""
+    fma = n * (m * d + 3 * m * (m + 1) // 2 + m * m + m * (d + 2))
+    return bound(2.0 * fma, 4.0 * (n * (d + 1) + 2 * m * d + 4 * m * m + m
+                                   + 3))
+
+
+def chain_bound(n, m, reps) -> dict:
+    """x W^reps: 2 n m^2 reps flops; x and W read, out written."""
+    return bound(2.0 * n * m * m * reps, 4.0 * (2 * n * m + m * m))
+
+
 def counted(tag, fn, must_launch):
     """Run one main path with every launch counter set to 0 just before it;
     return (fn's result, the counts read just after).  Fails unless each
     kernel in ``must_launch`` launched."""
-    for name in COUNTED:
-        getattr(fused_stats, name).launches = 0
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    launches = {name: getattr(fused_stats, name).launches for name in COUNTED}
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
     log(f"{tag} launches: {launches}")
     missing = [name for name in must_launch if not launches[name] > 0]
     if missing:
@@ -362,6 +437,7 @@ def slice_phase(dev, card: str, data) -> list[dict]:
                 "name": name, "route": "cuda", "source": SOURCE,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                **stats_bound(N, D, M), "library_ms": None,
             })
 
         for impl in ("fused_acc", "reference"):
@@ -442,20 +518,30 @@ def step_phase(dev, card: str, data) -> dict:
         "name": BWD_KERNEL, "route": "cuda", "source": BWD_SOURCE,
         "replaces": BWD_REPLACES, "launches": launches[BWD_KERNEL],
         "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        **bwd_bound(N, D, M), "library_ms": None,
     }
+
+
+def bench_targets(dev, X32):
+    """bench.py's training targets: sin(X (0.3 k + 0.2)) + 0.3 noise."""
+    w = torch.arange(D, dtype=torch.float32, device=dev) * 0.3 + 0.2
+    noise = np.random.default_rng(3).standard_normal(N).astype(np.float32)
+    return torch.sin(X32 @ w) + 0.3 * torch.as_tensor(noise, device=dev)
+
+
+def mean_nll(x, pack, X32, yf) -> float:
+    with torch.no_grad():
+        return -float(streaming.streaming_log_evidence(
+            *pack.unpack(x), X32, yf, variational=True,
+            block_size=BLOCK)) / N
 
 
 def fit_phase(dev, card: str, data) -> None:
     X32, _, Z = data
-    w = torch.arange(D, dtype=torch.float32, device=dev) * 0.3 + 0.2
-    noise = np.random.default_rng(3).standard_normal(N).astype(np.float32)
-    yf = torch.sin(X32 @ w) + 0.3 * torch.as_tensor(noise, device=dev)
+    yf = bench_targets(dev, X32)
     kernel = SeIso(LOG_ELL, LOG_SF2, device=dev, dtype=torch.float32)
     pack = make_pack(kernel, torch.as_tensor(Z, device=dev), 1.0)
-    with torch.no_grad():
-        f0 = -float(streaming.streaming_log_evidence(
-            *pack.unpack(pack.x0), X32, yf, variational=True,
-            block_size=BLOCK)) / N
+    f0 = mean_nll(pack.x0, pack, X32, yf)
     t0 = time.perf_counter()
     (_, _, s2, st), _ = counted(
         "fit", lambda: fit(X32, yf, pack, variational=True,
@@ -474,6 +560,141 @@ def fit_phase(dev, card: str, data) -> None:
         raise AssertionError(f"fit: mean NLL did not decrease ({f0} -> {f})")
 
 
+def chain_inputs(n, m, gen, dev):
+    """The probe's operands: x ~ 0.1 N(0, 1), W ~ 0.05 N(0, 1), f32."""
+    x = torch.randn(n, m, device=dev, generator=gen) * 0.1
+    w = torch.randn(m, m, device=dev, generator=gen) * 0.05
+    return x, w
+
+
+def chain_error(x, w, reps, got=None):
+    """(relative Frobenius error, max |error|) of the kernel against its
+    f64 twin on the same inputs."""
+    if got is None:
+        got = gemm_chain(x, w, reps)
+    want = _gemm_chain_reference(x.double(), w.double(), reps)
+    diff = got.double() - want
+    return (float(torch.linalg.norm(diff) / torch.linalg.norm(want)),
+            float(diff.abs().max()))
+
+
+def roofline_phase(dev, card: str) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(4)
+    # -- (a) the kernel against its f64 twin
+    for m, reps in ((384, 1), (384, 4), (300, 3)):
+        rel, _ = chain_error(*chain_inputs(65_536, m, gen, dev), reps)
+        log(f"roofline check n=65536 m={m} reps={reps}: rel err {rel:.2e} "
+            f"vs f64 twin (bound 1e-5)")
+        if not rel <= 1e-5:
+            raise AssertionError(f"gemm_chain off by rel {rel:.3e}")
+
+    # -- (b) the probe's leg-1 shapes and (c) bench.py's ceiling shape,
+    #    each driven once through the wrapper, counted
+    shapes = (("probe B=1024", 977 * 1024, 384, 1),
+              ("probe B=2048", 488 * 2048, 384, 1),
+              ("probe B=2048", 488 * 2048, 384, 4),
+              ("bench ceiling", 61 * 16_384, 300, 3))
+    inputs = {}
+    for _, n, m, _ in shapes:
+        if (n, m) not in inputs:
+            inputs[n, m] = chain_inputs(n, m, gen, dev)
+
+    def roofline():
+        return [gemm_chain(*inputs[n, m], reps)
+                for _, n, m, reps in shapes]
+
+    outs, launches = counted("roofline", roofline, ("gemm_chain",))
+    rel, max_abs = chain_error(*inputs[shapes[-1][1:3]], shapes[-1][3],
+                               got=outs[-1])
+    del outs
+    log(f"roofline bench ceiling: rel err {rel:.2e}, max |err| "
+        f"{max_abs:.3e} vs f64 twin")
+    if not rel <= 1e-5:
+        raise AssertionError(f"gemm_chain off by rel {rel:.3e}")
+
+    def matmul_chain(x, w, reps):
+        acc = x
+        for _ in range(reps):
+            acc = torch.matmul(acc, w)
+        return acc
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    for label, n, m, reps in shapes:  # the last, bench's, fills the JSON row
+        x, w = inputs[n, m]
+        ms = event_ms(lambda: gemm_chain(x, w, reps))
+        plain_ms = event_ms(
+            lambda: _gemm_chain_reference(x, w, reps))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        lib_ms = event_ms(lambda: matmul_chain(x, w, reps))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32_ms = event_ms(lambda: matmul_chain(x, w, reps))
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        b = chain_bound(n, m, reps)
+        tflops = 2.0 * n * m * m * reps / ms / 1e9
+        log(f"time gemm_chain {label} n={n} m={m} reps={reps}: {ms:.3f} ms "
+            f"= {tflops:.2f} TFLOP/s = {100 * tflops / 67:.1f} % of FP32 "
+            f"peak; bound {b['bound_ms']:.3f} ms ({b['bound_by']}); "
+            f"torch.matmul chain fp32 {lib_ms:.3f} ms (tf32 {tf32_ms:.3f} "
+            f"ms, information only); twin {plain_ms:.3f} ms (CUDA events; "
+            f"{card})")
+    return {
+        "name": "gemm_chain", "route": "cuda", "source": CHAIN_SOURCE,
+        "replaces": CHAIN_REPLACES, "launches": launches["gemm_chain"],
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **b,
+        "library_ms": lib_ms,
+    }
+
+
+def restarts_phase(dev, card: str, data) -> None:
+    X32, _, Z = data
+    yf = bench_targets(dev, X32)
+    z = torch.as_tensor(Z, device=dev)
+    pack = make_pack(SeIso(LOG_ELL, LOG_SF2, device=dev,
+                           dtype=torch.float32), z, 1.0)
+    x0s = [make_pack(SeIso(le, LOG_SF2, device=dev, dtype=torch.float32),
+                     z, 1.0).x0 for le in LADDER]
+    t0 = time.perf_counter()
+    (_, _, s2, st, rep), _ = counted(
+        "restarts", lambda: fit_restarts(
+            X32, yf, pack, x0s, probe_iters=12, variational=True,
+            streaming_block_size=BLOCK, max_iter=60, epsabs=1e-4,
+            rescore_f64=20_000),
+        ("se_iso_stream_stats_fused_acc", BWD_KERNEL))
+    secs = time.perf_counter() - t0
+    pe, pi = rep.probe_evals, max(1, rep.probe_iters)
+    ce, ci = rep.cont_evals, max(1, rep.cont_iters)
+    f, gnorm = float(st.f), float(torch.linalg.norm(st.g))
+    log(f"restarts: ladder {LADDER} probes {[round(v, 6) for v in rep]} "
+        f"rescored_f64 {[round(v, 6) for v in rep.rescored_f64]} winner "
+        f"{rep.winner}; iters {st.n_iter} evals {st.n_evals} [probe phase "
+        f"{pe} evals/{rep.probe_iters} iters = {pe / pi:.1f}/iter; "
+        f"continuation {ce}/{rep.cont_iters} = {ce / ci:.1f}/iter]; mean NLL "
+        f"{f:.6f}, |g| {gnorm:.3e}, sigma2 {float(s2):.4f}; {secs:.2f} s in "
+        f"all = {1e3 * secs / (pe + ce):.1f} ms per f32 evaluation, the f64 "
+        f"rescoring included ({card})")
+    if not all(np.isfinite(v) for v in (*rep, *rep.rescored_f64)):
+        raise AssertionError("restarts: a probe or rescored value is not "
+                             "finite")
+    f_start = mean_nll(x0s[rep.winner], pack, X32, yf)
+    log(f"restarts winner: mean NLL {f_start:.6f} at its start -> {f:.6f}")
+    if not (np.isfinite(f) and f < f_start):
+        raise AssertionError(f"restarts: the winner's mean NLL did not "
+                             f"fall ({f_start} -> {f})")
+
+    t0 = time.perf_counter()
+    _, _, s2p, _, prep = polish(X32, yf, pack, st.x, variational=True,
+                                subsample=20_000, max_iter=30, epsabs=1e-3)
+    secs = time.perf_counter() - t0
+    log(f"polish f64 on {X32.device} ({prep.n_rows} rows): mean NLL "
+        f"{prep.f0:.6f} -> {prep.f:.6f}, |g| {prep.gnorm0:.3e} -> "
+        f"{prep.gnorm:.3e} in {prep.n_iter} iters/{prep.n_evals} evals, "
+        f"converged {prep.converged}, sigma2 {float(s2p):.4f}; {secs:.2f} s "
+        f"({card})")
+    if not prep.gnorm < prep.gnorm0:
+        raise AssertionError(f"polish: |g| did not fall ({prep.gnorm0} -> "
+                             f"{prep.gnorm})")
+
+
 def main() -> int:
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -484,6 +705,8 @@ def main() -> int:
     rows = slice_phase(dev, card, data)
     rows.append(step_phase(dev, card, data))
     fit_phase(dev, card, data)
+    rows.append(roofline_phase(dev, card))
+    restarts_phase(dev, card, data)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,10 @@ keeps ``gpr_tpu``'s module layout and function names; the kernels that
 (``csrc/``, built at first use), each beside a plain PyTorch twin that CPU
 tensors run.  Ported so far: the SE-iso streaming conditioning and serving
 path (``models.streaming``), its training step (the hand VJP of
-``models.stream_grad`` and the L-BFGS ``optim.fit``) and the npz model
-artifacts (``io``).
+``models.stream_grad`` and the L-BFGS ``optim.fit``), the dense engine
+(``models.fitc``), multi-start training with f64 rescoring and the f64
+polish (``optim.fit_restarts``, ``optim.polish``), the roofline GEMM chain
+(``ops.gemm_chain``) and the npz model artifacts (``io``).
 """
 
 __version__ = "0.1.0"

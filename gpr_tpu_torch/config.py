@@ -34,6 +34,10 @@ class Config:
     # (kernels/base.py:sqdist).  "direct" avoids the cancellation of the
     # |a|^2 - 2ab + |b|^2 expansion at O(n m d) elementwise cost.
     sqdist_impl: str = "gemm"
+    # "qr" | "chol" | "auto": how the dense engine factors
+    # B = Km + Knm' D^-1 Knm (models/fitc.py).  "auto" takes the stacked QR
+    # while n m <= 2^24, the whitened Cholesky above.
+    factorization: str = "auto"
 
 
 config = Config()

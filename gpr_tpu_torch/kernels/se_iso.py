@@ -24,7 +24,9 @@ class SeIso(nn.Module):
     learn_inducing_default = True
 
     def __init__(self, log_ell: float = 0.0, log_sf2: float = 0.0, *,
-                 device=None, dtype=None):
+                 device="cuda", dtype=None):
+        """On the card unless ``device`` says otherwise (``"cpu"`` for CPU
+        work): with no GPU the default raises rather than falling back."""
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.log_ell = nn.Parameter(torch.as_tensor(log_ell, **kw).clone())

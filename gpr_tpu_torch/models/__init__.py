@@ -1,4 +1,15 @@
-from .fitc import InducingState, calc_inducing
+from .fitc import (
+    InducingState,
+    ModelState,
+    TrainedState,
+    calc_inducing,
+    calc_means,
+    calc_model,
+    calc_trained,
+    co_variance_coeffs,
+    log_evidence,
+    update_sigma2,
+)
 from .streaming import (
     StreamingTrained,
     StreamStats,

@@ -10,11 +10,11 @@ The pass runs one of three implementations (``impl``):
 
 * ``"fused_acc"`` -- the CUDA kernel behind
   :func:`gpr_tpu_torch.ops.se_iso_stream_stats_fused_acc` (the default for
-  CUDA tensors; the counterpart of the JAX package's ``impl="pallas"``);
+  f32 CUDA tensors; the counterpart of the JAX package's ``impl="pallas"``);
 * ``"fused"`` -- the per-block-partials kernel behind
   :func:`gpr_tpu_torch.ops.se_iso_stream_stats_fused`;
 * ``"reference"`` -- the plain blocked loop of ``stream_grad._forward_scan``
-  (the default for CPU tensors).
+  (the default for CPU tensors and for f64 on the card).
 
 Gradients (``grad_impl``): ``"custom"`` (the default) is the hand VJP of
 ``stream_grad.StreamStatsFn``, whose backward runs the backward kernel
@@ -76,7 +76,10 @@ def _resolve_impl(impl, X, grad_impl="custom"):
             )
         return "reference"
     if impl is None:
-        return "fused_acc" if X.is_cuda else "reference"
+        # the kernels compute in f32: f64 on the card (the polish, the
+        # parity twin) runs the plain loop
+        f32_cuda = X.is_cuda and X.dtype == torch.float32
+        return "fused_acc" if f32_cuda else "reference"
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; valid: {IMPLS}")
     if impl != "reference" and not X.is_cuda:

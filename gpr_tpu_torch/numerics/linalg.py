@@ -63,6 +63,21 @@ def solve_tri(tri: torch.Tensor, b: torch.Tensor, *, trans: bool = False,
     return x[..., 0] if vec else x
 
 
+def solve_tri_right(b: torch.Tensor, tri: torch.Tensor, *, trans: bool = False,
+                    lower: bool = False) -> torch.Tensor:
+    """Solve ``x op(tri) = b``, i.e. ``x = b op(tri)^-1`` (right-side trsm)."""
+    upper = lower if trans else not lower
+    a = tri.mT if trans else tri
+    return torch.linalg.solve_triangular(a, b, upper=upper, left=False)
+
+
+def ichol(chol_u: torch.Tensor) -> torch.Tensor:
+    """Full inverse of A from its upper Cholesky factor U (A = U^T U):
+    A^-1 = U^-1 U^-T."""
+    u_inv = inv_tri_upper(chol_u)
+    return matmul(u_inv, u_inv.mT)
+
+
 def inv_tri_upper(u: torch.Tensor) -> torch.Tensor:
     """Inverse of an upper-triangular matrix (exactly upper triangular)."""
     eye = torch.eye(u.shape[-1], dtype=u.dtype, device=u.device)
@@ -72,3 +87,18 @@ def inv_tri_upper(u: torch.Tensor) -> torch.Tensor:
 def rows_sqr_norm(a: torch.Tensor) -> torch.Tensor:
     """Per-row squared norms: diag(A A^T)."""
     return torch.sum(torch.square(a), dim=-1)
+
+
+def syrk(a: torch.Tensor) -> torch.Tensor:
+    """A^T A, the Gram matrix."""
+    return matmul(a.mT, a)
+
+
+def qr_r_positive(a: torch.Tensor) -> torch.Tensor:
+    """R factor of a thin QR with the sign convention diag(R) > 0: then R
+    is the unique upper Cholesky factor of A^T A.  The reduced mode, not
+    ``mode="r"``, because only the former has a backward in PyTorch."""
+    r = torch.linalg.qr(a, mode="reduced").R
+    sign = torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))
+    sign = torch.where(sign == 0, torch.ones_like(sign), sign)
+    return r * sign[..., :, None]

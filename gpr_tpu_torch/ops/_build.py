@@ -26,7 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("se_iso_stats.cu", "se_iso_bwd.cu")
+SOURCES = ("se_iso_stats.cu", "se_iso_bwd.cu", "gemm_chain.cu")
 # Plain IEEE f32: no --use_fast_math (the f32 evidence is only as good as the
 # Knm / V entries).  -Xptxas -v writes registers and spills to the build log.
 NVCC_FLAGS = (
@@ -50,6 +50,11 @@ _BWD_ARGTYPES = [
     *[ctypes.c_float] * 6,
     ctypes.c_int, ctypes.c_int,  # n_ctas, tiles_per_cta
     _P, _P, _P, _P, _P,  # ui_part, caug_part, sums_part, y_bar, stream
+]
+_CHAIN_ARGTYPES = [
+    _P, _P, _P,  # x, W, out
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # n, m, reps
+    ctypes.c_int, _P,  # n_ctas, stream
 ]
 
 
@@ -131,6 +136,10 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.se_iso_bwd_acc.argtypes = _BWD_ARGTYPES
     lib.se_iso_bwd_acc.restype = ctypes.c_int
+    lib.gemm_chain.argtypes = _CHAIN_ARGTYPES
+    lib.gemm_chain.restype = ctypes.c_int
+    lib.gemm_chain_smem_bytes.argtypes = [ctypes.c_int]
+    lib.gemm_chain_smem_bytes.restype = ctypes.c_longlong
     for prefix in ("se_iso_stats", "se_iso_bwd"):
         rows = getattr(lib, f"{prefix}_rows_per_tile")
         rows.argtypes = []

@@ -1,10 +1,15 @@
+from .lbfgs import LBFGSHostState, LBFGSResult, minimize_lbfgs
 from .lbfgs_device import (
     LBFGSDeviceState,
+    ProbeReport,
     fit,
     fit_packed_objective,
+    fit_restarts,
     minimize_lbfgs_device,
 )
 from .pack import HyperPack, make_pack
+from .polish import PolishReport, evaluate_f64, polish
 from .priors import field_priors, normal, soft_box
+from .train import default_n_inducing, default_sigma2, make_objective
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -16,8 +16,11 @@ fallback, and history clearing on a failed line search.
 
 from __future__ import annotations
 
+import math
+import warnings
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -225,28 +228,34 @@ def minimize_lbfgs_device(
 
 def _make_fg(pack, variational, streaming_block_size, scale, log_prior,
              objective="evidence"):
-    """(x, X, y) -> (f, grad) of the packed, scaled negative streaming
-    evidence (+ optional prior)."""
+    """(x, X, y) -> (f, grad) of the packed, scaled negative evidence (+
+    optional prior): the streaming evidence with ``streaming_block_size``,
+    else the dense engine (whitened Cholesky factorization).  The one
+    objective builder of fit and fit_restarts."""
+    from ..models.fitc import calc_model, calc_trained
     from ..models.streaming import streaming_log_evidence
 
-    if objective != "evidence":
+    if objective not in ("evidence", "loo"):
+        raise ValueError(f"unknown objective {objective!r}")
+    if objective == "loo":
         raise NotImplementedError(
-            f"objective={objective!r} needs the dense FITC engine, which is "
-            f"not ported yet (ROADMAP.md, queue 1)"
-        )
-    if streaming_block_size is None:
-        raise NotImplementedError(
-            "fit without streaming_block_size needs the dense FITC engine, "
-            "which is not ported yet (ROADMAP.md, queue 1)"
+            "objective='loo' needs models/loo.py, which is not ported yet "
+            "(ROADMAP.md, queue 1)"
         )
 
     def fg_of(x, X, y):
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
             kernel, z, sigma2 = pack.unpack(x)
-            l = streaming_log_evidence(kernel, z, sigma2, X, y,
-                                       variational=variational,
-                                       block_size=streaming_block_size)
+            if streaming_block_size is not None:
+                l = streaming_log_evidence(kernel, z, sigma2, X, y,
+                                           variational=variational,
+                                           block_size=streaming_block_size)
+            else:
+                model = calc_model(kernel, X, z, sigma2,
+                                   variational=variational,
+                                   factorization="chol")
+                l = calc_trained(model, y).l
             if log_prior is not None:
                 l = l + log_prior(kernel, z, sigma2)
             f = -l * scale
@@ -324,8 +333,9 @@ def fit(X, y, pack, *, variational: bool = False, step: float = 0.1,
     The JAX ``fit(family, X, y, pack, ...)`` minus ``family``: the pack's
     kernel class is the family.  ``normalize`` (default on) optimizes the
     mean NLL, which f32 training at large n needs; ``epsabs`` then applies
-    to mean-scale gradient norms.  ``streaming_block_size`` is required
-    (the dense engine and ``objective="loo"`` are not ported).  ``f_noise``
+    to mean-scale gradient norms.  ``streaming_block_size`` switches the
+    objective to the streaming evidence; without it the dense engine runs
+    (``objective="loo"`` is not ported and raises).  ``f_noise``
     defaults to a few f32 ulps of a unit-scale objective for f32 data, 0
     for f64.  ``log_prior(kernel, z, sigma2)`` makes it MAP estimation
     (``optim.priors``).  ``init_state`` resumes a previous run (``max_iter``
@@ -345,3 +355,150 @@ def fit(X, y, pack, *, variational: bool = False, step: float = 0.1,
     )
     kernel, z, sigma2 = pack.unpack(st.x)
     return kernel, z, sigma2, st
+
+
+class ProbeReport(list):
+    """Probe objectives (a plain list) plus per-phase line-search counters:
+    ``probe_evals`` / ``probe_iters`` sum over all starts, ``cont_evals`` /
+    ``cont_iters`` cover the continuation alone, so evaluations per
+    iteration show per phase.  ``winner`` is the index in ``x0s`` of the
+    start that continued (the port's addition)."""
+
+    def __init__(self, *a):
+        super().__init__(*a)
+        self.probe_evals = 0
+        self.probe_iters = 0
+        self.cont_evals = 0
+        self.cont_iters = 0
+        self.rescored_f64 = None  # set when fit_restarts(rescore_f64=...)
+        self.winner = None
+
+
+def _rank_key(f, failed):
+    """Healthy (finite, line search alive) before failed before diverged; a
+    NaN objective never wins a "<" against a finite one."""
+    bad = 2 if not math.isfinite(f) else (1 if failed else 0)
+    return (bad, f if math.isfinite(f) else math.inf)
+
+
+def fit_restarts(X, y, pack, x0s, *, probe_iters: int = 15,
+                 variational: bool = False, step: float = 0.1,
+                 tol: float = 0.1, epsabs: float = 0.1, max_iter: int = 100,
+                 history: int = 10, normalize: bool = True,
+                 streaming_block_size: int | None = None,
+                 f_noise: float | None = None, dispatch_iters: int = 50,
+                 log_prior=None, objective: str = "evidence",
+                 probe_subsample: int | None = None, probe_seed: int = 0,
+                 rescore_f64: int | None = None):
+    """Multi-start training: a short L-BFGS probe (``probe_iters``
+    iterations) from each packed start in ``x0s``, then the best probe
+    (lowest objective) continues to ``max_iter`` total iterations with its
+    curvature history intact.  Returns (kernel, z, sigma2, final_state,
+    ProbeReport).  The JAX ``fit_restarts(family, ...)`` minus ``family``.
+
+    ``probe_subsample``: run the probes on a random row subsample of this
+    size (``np.random.default_rng(probe_seed)``); the winner then restarts
+    on the full data from its probed x with fresh curvature history, and
+    ``max_iter`` bounds the full-data iterations alone.
+
+    ``rescore_f64``: rank the finished probes by the f64 objective on a
+    shared row subsample of this size (``optim.polish.evaluate_f64``, in
+    process on the data's device) instead of their raw objectives, which an
+    f32 run can inflate in degenerate basins.  Requires
+    ``objective="evidence"`` and ``log_prior=None``; the values land in
+    ``ProbeReport.rescored_f64``.  If every rescore is non-finite, the raw
+    ranking is used, with a warning.
+    """
+    scale = 1.0 / X.shape[0] if normalize else 1.0
+    if f_noise is None:
+        f_noise = 5e-7 if X.dtype == torch.float32 else 0.0
+    fg_of = _make_fg(pack, variational, streaming_block_size, scale,
+                     log_prior, objective)
+    if rescore_f64 is not None and (objective != "evidence"
+                                    or log_prior is not None):
+        raise ValueError(
+            "rescore_f64 requires objective='evidence' and log_prior=None "
+            "(the f64 rescoring evaluates the plain library objective)"
+        )
+
+    subsampled = probe_subsample is not None and probe_subsample < X.shape[0]
+    if subsampled:
+        idx = torch.as_tensor(np.random.default_rng(probe_seed).choice(
+            X.shape[0], probe_subsample, replace=False), device=X.device)
+        Xp, yp = X[idx], y[idx]
+        fg_probe = _make_fg(
+            pack, variational,
+            None if streaming_block_size is None
+            else min(streaming_block_size, probe_subsample),
+            1.0 / probe_subsample if normalize else 1.0, log_prior, objective,
+        )
+    else:
+        Xp, yp = X, y
+        fg_probe = fg_of
+
+    def probe_chunk(st, X, y):
+        return minimize_lbfgs_device(
+            lambda x: fg_probe(x, X, y), st.x, step=step, tol=tol,
+            epsabs=epsabs, max_iter=probe_iters, history=history,
+            f_noise=f_noise, init_state=st,
+            dispatch_iters=min(dispatch_iters, probe_iters),
+        )
+
+    def chunk(st, X, y):
+        return minimize_lbfgs_device(
+            lambda x: fg_of(x, X, y), st.x, step=step, tol=tol,
+            epsabs=epsabs, max_iter=max_iter, history=history,
+            f_noise=f_noise, init_state=st, dispatch_iters=dispatch_iters,
+        )
+
+    states = []
+    report = ProbeReport()
+    for x0 in x0s:
+        x0 = torch.as_tensor(x0, dtype=pack.x0.dtype, device=pack.x0.device)
+        st = _fresh_state(x0, *fg_probe(x0, Xp, yp), history)
+        st = _chunk_loop(probe_chunk, st, Xp, yp, probe_iters, epsabs,
+                         f_noise)
+        report.append(float(st.f))
+        report.probe_evals += st.n_evals
+        report.probe_iters += st.n_iter
+        states.append(st)
+    if not states:
+        raise ValueError("x0s is empty")
+
+    raw = [_rank_key(float(st.f), st.failed) for st in states]
+    if rescore_f64 is not None:
+        from .polish import evaluate_f64
+
+        f64s = evaluate_f64(
+            X, y, pack, [st.x for st in states], variational=variational,
+            subsample=rescore_f64, seed=probe_seed,
+            block_size=streaming_block_size, normalize=normalize,
+        )
+        report.rescored_f64 = list(f64s)
+        if all(not math.isfinite(f) for f in f64s):
+            warnings.warn(
+                "rescore_f64: all candidates evaluated non-finite in f64; "
+                "falling back to raw-f32 probe ranking",
+                stacklevel=2,
+            )
+            keys = raw
+        else:
+            keys = [_rank_key(f, st.failed) for st, f in zip(states, f64s)]
+    else:
+        keys = raw
+    report.winner = min(range(len(states)), key=keys.__getitem__)
+    best = states[report.winner]
+    if subsampled:
+        # the subsample's curvature pairs and (f, g) do not carry to the
+        # full objective: restart from the probed x
+        best = _fresh_state(best.x, *fg_of(best.x, X, y), history)
+    else:
+        # a cleared failed flag lets a probe that ended in a line-search
+        # failure retry from steepest descent in the continuation
+        best = best._replace(failed=False)
+    evals0, iters0 = best.n_evals, best.n_iter
+    st = _chunk_loop(chunk, best, X, y, max_iter, epsabs, f_noise)
+    report.cont_evals = st.n_evals - evals0
+    report.cont_iters = st.n_iter - iters0
+    kernel, z, sigma2 = pack.unpack(st.x)
+    return kernel, z, sigma2, st, report
