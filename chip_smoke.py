@@ -8,9 +8,9 @@ Phases, each printed on its own line:
 
 1. device  -- the card's name and power limit (nvidia-smi), torch and CUDA
    versions.  No GPU: the script raises; there is no CPU path.
-2. build   -- nvcc builds csrc/se_iso_stats.cu and csrc/se_iso_bwd.cu for
-   sm_90a side by side (gpr_tpu_torch/_build/), with the ptxas register and
-   spill report.
+2. build   -- nvcc builds csrc/se_iso_stats.cu, csrc/se_iso_bwd.cu and
+   csrc/gemm_chain.cu for sm_90a side by side (gpr_tpu_torch/_build/), with
+   the ptxas register and spill report.
 3. kernels -- both forward-statistics kernels (f32) against their plain
    PyTorch twin run in f64 on the card, on the same inputs: G and u within
    1e-4 relative (Frobenius), the four scalars within 1e-5.
@@ -37,12 +37,19 @@ Phases, each printed on its own line:
    pack from log_ell 0.5, sigma2 1.0; variational): finite, with a mean NLL
    that decreases, through both kernels.
 8. roofline -- the GEMM-chain kernel (csrc/gemm_chain.cu, the roofline
-   probe's k_chain): within 1e-5 relative (Frobenius) of its f64 twin at
-   65,536 rows for (m, reps) = (384, 1), (384, 4), (300, 3); then the
-   probe's leg-1 shapes (m = 384; 977 x 1,024 rows with reps 1, 488 x 2,048
-   rows with reps 1 and 4) and bench.py's ceiling shape (m = 300, 61 x
-   16,384 rows, reps 3), each timed with CUDA events beside its bound and
-   the same chain as torch.matmul calls (TF32 off; TF32 on for information).
+   probe's k_chain): ptxas's registers and spills of each instantiation
+   (G = 1..6 column groups; a spill fails), its shared memory equal to
+   ``ops.gemm_chain._geometry``'s for every m in 1..384; within 1e-5
+   relative (Frobenius) of its f64 twin at 65,536 rows for (m, reps) =
+   (384, 1), (384, 4), (300, 3) and at 100,003 rows for m = 8, 37, 64, 65,
+   129, 200, 300, 384 (every G, ragged tails) with reps 1..4 cycled; then
+   the probe's leg-1 shapes (m = 384; 977 x 1,024 rows with reps 1, 488 x
+   2,048 rows with reps 1 and 4) and bench.py's ceiling shape (m = 300, 61
+   x 16,384 rows, reps 3), each timed with CUDA events beside the previous
+   kernel's time there (a constant), its bound and the same chain as
+   torch.matmul calls (TF32 off, timed in turns with the kernel; TF32 on
+   for information), with the SM clock and power draw nvidia-smi sampled
+   meanwhile.
 9. restarts -- bench.py's training leg: ``optim.fit_restarts`` over the
    log-lengthscale ladder (-1.5, -0.5, 0.5, 1.5), 12 probe iterations,
    max_iter 60, epsabs 1e-4, rescore_f64 20,000 rows, block 8,192 (not
@@ -51,7 +58,8 @@ Phases, each printed on its own line:
    probe and rescored value finite, the winner's mean NLL below its start,
    the polish's gradient norm below its start.
 Timings: median of 5 after a warm-up, host clock around synchronised
-calls, or CUDA events where named.
+calls, or CUDA events where named (the chain and its torch.matmul
+yardstick: median of 10, in two turns each).
 
 The line before the last is a JSON object of the kernels (each with its
 bound: the larger of its flops at the 67 TFLOP/s FP32 peak and its bytes,
@@ -63,10 +71,12 @@ is ``{"ok": true, "device": {...}}``.  Any failed check raises (exit code
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from datetime import datetime
 
 import numpy as np
 import torch
@@ -78,7 +88,9 @@ from gpr_tpu_torch.models.fitc import calc_inducing
 from gpr_tpu_torch.numerics.linalg import inv_tri_upper
 from gpr_tpu_torch.ops import _build, fused_stats
 from gpr_tpu_torch.ops.gemm_chain import (
+    MAX_M,
     _gemm_chain_reference,
+    _geometry,
     gemm_chain,
 )
 from gpr_tpu_torch.optim import fit, fit_restarts, make_pack, polish
@@ -97,6 +109,11 @@ BWD_KERNEL = "se_iso_stream_bwd_fused"
 BWD_REPLACES = "gpr_tpu/ops/fused_stats.py:341"
 CHAIN_SOURCE = "gpr_tpu_torch/csrc/gemm_chain.cu"
 CHAIN_REPLACES = "probes/r3_roofline_probe.py:98"
+# The previous chain kernel (a 32-row tile, 4 rows a warp, one column pair
+# of a 64-column W panel a lane) at the timed shapes, (n, m, reps) -> ms:
+# CUDA events, median of 5, NVIDIA H100 80GB HBM3 at 700.00 W.
+PREV_CHAIN_MS = {(977 * 1024, 384, 1): 25.16, (488 * 2048, 384, 1): 25.20,
+                 (488 * 2048, 384, 4): 91.57, (61 * 16_384, 300, 3): 47.44}
 WRAPPERS = {  # every launch-counted wrapper, by name
     **{name: getattr(fused_stats, name) for name in (*KERNELS, BWD_KERNEL)},
     "gemm_chain": gemm_chain,
@@ -279,8 +296,8 @@ def median_ms(fn, reps=5) -> float:
     return statistics.median(times)
 
 
-def event_ms(fn, reps=5) -> float:
-    """CUDA events around each call: median of ``reps`` after one warm-up."""
+def event_times(fn, reps=5) -> list[float]:
+    """CUDA events around each of ``reps`` calls after one warm-up, in ms."""
     fn()
     times = []
     for _ in range(reps):
@@ -291,7 +308,32 @@ def event_ms(fn, reps=5) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def clock_log() -> subprocess.Popen:
+    """Start nvidia-smi sampling the SM clock and the power draw every 100
+    ms; stop it with read_clock_log."""
+    return subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+
+def read_clock_log(proc: subprocess.Popen) -> list[tuple]:
+    """Stop the sampler; its samples as (unix time, SM MHz, W)."""
+    proc.terminate()
+    out = proc.communicate(timeout=60)[0]
+    samples = []
+    for line in out.splitlines():
+        try:
+            stamp, mhz, watts = (f.strip() for f in line.split(","))
+            samples.append((datetime.strptime(
+                stamp, "%Y/%m/%d %H:%M:%S.%f").timestamp(), int(mhz),
+                float(watts)))
+        except ValueError:
+            continue
+    return samples
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -578,13 +620,53 @@ def chain_error(x, w, reps, got=None):
             float(diff.abs().max()))
 
 
+def chain_ptxas() -> dict:
+    """{G: (registers, spill store bytes, spill load bytes)} of each
+    gemm_chain_kernel<G> in this run's build log; empty if the library was
+    not built in this run."""
+    build_log = _build.library_path().with_suffix(".log")
+    if not build_log.exists():
+        return {}
+    found, g = {}, None
+    for line in build_log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            hit = re.search(r"gemm_chain_kernelILi(\d+)E", line)
+            g = int(hit.group(1)) if hit else None
+        elif g is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            found[g] = [None, int(st), int(ld)]
+        elif g is not None and "registers" in line and g in found:
+            found[g][0] = int(re.search(r"Used (\d+) registers",
+                                        line).group(1))
+            g = None
+    return {g: tuple(v) for g, v in sorted(found.items())}
+
+
 def roofline_phase(dev, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(4)
+    # -- the build: registers and spills; the launch geometry
+    report = chain_ptxas()
+    log("gemm_chain ptxas: " + ("; ".join(
+        f"G={g}: {r} registers, spill {st}/{ld} bytes"
+        for g, (r, st, ld) in report.items()) or "not built in this run"))
+    if report and (sorted(report) != list(range(1, 7)) or any(
+            st or ld for _, st, ld in report.values())):
+        raise AssertionError(f"gemm_chain instantiations spill or are "
+                             f"missing: {report}")
+    lib = _build.load_library()
+    for m in range(1, MAX_M + 1):
+        if _geometry(1, m, 1).smem_bytes != lib.gemm_chain_smem_bytes(m):
+            raise AssertionError(f"m={m}: _geometry's shared memory differs "
+                                 f"from the library's")
     # -- (a) the kernel against its f64 twin
-    for m, reps in ((384, 1), (384, 4), (300, 3)):
-        rel, _ = chain_error(*chain_inputs(65_536, m, gen, dev), reps)
-        log(f"roofline check n=65536 m={m} reps={reps}: rel err {rel:.2e} "
-            f"vs f64 twin (bound 1e-5)")
+    checks = [(65_536, m, reps) for m, reps in ((384, 1), (384, 4),
+                                                 (300, 3))]
+    checks += [(100_003, m, 1 + i % 4)
+               for i, m in enumerate((8, 37, 64, 65, 129, 200, 300, 384))]
+    for n, m, reps in checks:
+        rel, _ = chain_error(*chain_inputs(n, m, gen, dev), reps)
+        log(f"roofline check n={n} m={m} G={_geometry(n, m, 1).groups} "
+            f"reps={reps}: rel err {rel:.2e} vs f64 twin (bound 1e-5)")
         if not rel <= 1e-5:
             raise AssertionError(f"gemm_chain off by rel {rel:.3e}")
 
@@ -618,25 +700,51 @@ def roofline_phase(dev, card: str) -> dict:
             acc = torch.matmul(acc, w)
         return acc
 
+    # The kernel and the torch.matmul chain are timed in turns (kernel,
+    # library, library, kernel) so that both see the same clock: the kernel
+    # can draw the card to its power limit, and the clock then drops.
     tf32 = torch.backends.cuda.matmul.allow_tf32
-    for label, n, m, reps in shapes:  # the last, bench's, fills the JSON row
-        x, w = inputs[n, m]
-        ms = event_ms(lambda: gemm_chain(x, w, reps))
-        plain_ms = event_ms(
-            lambda: _gemm_chain_reference(x, w, reps))
-        torch.backends.cuda.matmul.allow_tf32 = False
-        lib_ms = event_ms(lambda: matmul_chain(x, w, reps))
-        torch.backends.cuda.matmul.allow_tf32 = True
-        tf32_ms = event_ms(lambda: matmul_chain(x, w, reps))
+    sampler, timed = clock_log(), []
+    try:
+        for label, n, m, reps in shapes:
+            x, w = inputs[n, m]
+            t0 = time.time()
+            kernel_ms, lib_ms = [], []
+            torch.backends.cuda.matmul.allow_tf32 = False
+            for fn, times in ((gemm_chain, kernel_ms),
+                              (matmul_chain, lib_ms), (matmul_chain, lib_ms),
+                              (gemm_chain, kernel_ms)):
+                times += event_times(lambda fn=fn: fn(x, w, reps))
+            plain_ms = statistics.median(event_times(
+                lambda: _gemm_chain_reference(x, w, reps)))
+            torch.backends.cuda.matmul.allow_tf32 = True
+            tf32_ms = statistics.median(event_times(
+                lambda: matmul_chain(x, w, reps)))
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            timed.append((label, n, m, reps, statistics.median(kernel_ms),
+                          statistics.median(lib_ms), plain_ms, tf32_ms, t0,
+                          time.time()))
+    finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+        samples = read_clock_log(sampler)
+    # the last shape, bench's, fills the JSON row
+    for label, n, m, reps, ms, lib_ms, plain_ms, tf32_ms, t0, t1 in timed:
         b = chain_bound(n, m, reps)
         tflops = 2.0 * n * m * m * reps / ms / 1e9
+        prev = PREV_CHAIN_MS[n, m, reps]
+        window = [(mhz, watts) for t, mhz, watts in samples if t0 <= t <= t1]
+        clock = (f"SM clock {min(c for c, _ in window)}-"
+                 f"{max(c for c, _ in window)} MHz, power up to "
+                 f"{max(p for _, p in window):.0f} W" if window
+                 else "clock not sampled")
         log(f"time gemm_chain {label} n={n} m={m} reps={reps}: {ms:.3f} ms "
-            f"= {tflops:.2f} TFLOP/s = {100 * tflops / 67:.1f} % of FP32 "
-            f"peak; bound {b['bound_ms']:.3f} ms ({b['bound_by']}); "
-            f"torch.matmul chain fp32 {lib_ms:.3f} ms (tf32 {tf32_ms:.3f} "
-            f"ms, information only); twin {plain_ms:.3f} ms (CUDA events; "
-            f"{card})")
+            f"(previous kernel {prev:.2f} ms: {prev / ms:.2f}x) = "
+            f"{tflops:.2f} TFLOP/s = {100 * tflops / 67:.1f} % of FP32 "
+            f"peak; bound {b['bound_ms']:.3f} ms ({b['bound_by']}) = "
+            f"{100 * b['bound_ms'] / ms:.1f} % of bound; torch.matmul chain "
+            f"fp32 {lib_ms:.3f} ms in turns with it ({lib_ms / ms:.2f}x the "
+            f"kernel's time; tf32 {tf32_ms:.3f} ms, information only); twin "
+            f"{plain_ms:.3f} ms; {clock} (CUDA events; {card})")
     return {
         "name": "gemm_chain", "route": "cuda", "source": CHAIN_SOURCE,
         "replaces": CHAIN_REPLACES, "launches": launches["gemm_chain"],

@@ -1,6 +1,6 @@
 // A chain of f32 matrix products, out = x W^reps, by hand for Hopper (sm_90a).
 //
-// Replaces the Pallas roofline kernel k_chain of probes/r3_roofline_probe.py
+// Replaces the Pallas roofline kernel k_chain of probes/r3_roofline_probe.py:98
 // (leg 1: acc = x; repeat reps: acc = acc W, with W resident and one row
 // block per grid step), the speed-of-light measurement of the fused
 // statistics kernels.  On the TPU each product was _dot3, a 3-pass bf16
@@ -11,138 +11,320 @@
 // What bounds it on this card.  2 n m^2 reps flops against 4 (2 n m + m^2)
 // bytes of device memory: at m = 300..384 about 75..96 flops a byte, far
 // above the FP32 balance point (67e12 / 3.35e12 = 20), so the FP32 FMA rate
-// bounds it.
+// bounds it: every issue slot that is not an FFMA, and every cycle a warp
+// scheduler waits, is lost to that bound.
 //
-// What the design does about it: nothing beyond the backward kernel's
-// product loop, on purpose.  The loop below is csrc/se_iso_bwd.cu's
-// tile_gemm<kFull> with the same tile shapes -- a 32-row tile of acc in
-// shared memory, 8 warps of 4 rows each, every lane owning 2 columns of a
-// 64-column panel of W streamed from L2 through shared memory -- and none of
-// the GP algebra around it.  Its rate is therefore the ceiling of that loop
-// design: the gap between it and the backward kernel's rate is what the GP
-// epilogue and the per-tile partials cost.
-//   * Two (32, mp) tiles ping-pong between reps, so the intermediate never
-//     leaves the SM; the barrier at the end of each product separates
-//     writing one buffer from reading it as the next input.
-//   * A W panel is staged row by row (64 consecutive floats of a row of the
-//     row-major W per warp-pair: coalesced), so the strided column panel is
-//     never read from device memory column-wise.
-//   * A warp reads one acc row as float4 at a time: all 32 lanes read the same
-//     address (a broadcast, no bank conflict); W panel reads are one float per
-//     lane on consecutive words (conflict-free).
-//   * At m = 384: 2 x 48 KB of tiles + 96 KB of panel = 192 KB of the 227 KB a
-//     block may opt into: one CTA per SM.  CTAs loop over row tiles, so the
-//     wrapper launches one CTA per SM, a whole wave.
-//   * Columns >= m of both tiles are zero and rows >= n are zero on input and
-//     never written, so any n and any m <= 384 (m = 300 needs a panel tail)
-//     take the same path.
+// What the design does about it: a register-tiled outer product that keeps
+// the FMA pipes fed from registers, and every load asynchronous.
+//   * A CTA of 8 warps owns a 64-row tile and all 64 G (G = ceil(m / 64) <= 6)
+//     of its padded columns, because the next product needs whole rows.  Warp
+//     w owns rows 8w..8w+7; lane l owns the columns 128q + 4l .. 128q + 4l + 3
+//     for q < G / 2 and, when G is odd, the pair 128 (G / 2) + 2l, +1.  That
+//     is 16 G accumulators a thread (96 at m = 384), in registers: the kernel
+//     is templated on G.
+//   * The products read their left operand k-major, A[k][row] with a row
+//     stride of 68 floats.  Per k a thread loads its 8 rows as two broadcast
+//     float4 and its W columns as G / 2 float4 (+ a float2), all lanes on
+//     consecutive words, then issues 16 G FFMAs: 19 FFMAs a shared load at
+//     G = 6, 8 in a row on one W value.  The next k's fragments load while
+//     this k's FFMAs issue.
+//   * Everything the products read from device memory streams through one
+//     ring of 3 stages, filled with cp.async: a stage holds a slice of W (16
+//     rows x 64 G columns; 16-byte copies when m % 4 == 0, 4-byte otherwise)
+//     and, for a tile's first product, the matching 16 columns of x,
+//     transposed into the A layout by 4-byte copies.  The copies zero-fill
+//     rows and columns out of range, so the FMA loop has no tail branch.  W is
+//     the same in every product, so the ring runs on across product and tile
+//     boundaries: the next tile's x and W are in flight while this tile's last
+//     product finishes and its result drains.
+//   * Between products the accumulators go to A transposed (two float4 a
+//     column: 8 consecutive rows), after one barrier; one A buffer suffices
+//     because every read of a product precedes that barrier, and the first
+//     product reads x from the ring.  The last product goes from registers
+//     straight to out.
+//   * At m = 384: 104 KB of A + 3 x 28 KB of ring = 187 KB of the 227 KB a
+//     block may opt into: one CTA per SM, which strides over the row tiles,
+//     so the wrapper launches one CTA per SM.
+//   * Rows >= n load as zero and are never written; columns >= m are zero in
+//     the ring and so in A, so any n and any 1 <= m <= 384 take the same path.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;                        // 8 warps
-constexpr int kRows = 32;                            // rows per tile
-constexpr int kWarpRows = kRows / (kThreads / 32);   // rows per warp
-constexpr int kPanel = 64;                           // W panel width
-constexpr int kPad = 8;                              // tile column padding
+constexpr int kThreads = 256;        // 8 warps
+constexpr int kRows = 64;            // rows per tile
+constexpr int kWarpRows = 8;         // rows per warp
+constexpr int kGroup = 64;           // columns per group: 2 a lane
+constexpr int kMaxGroups = 6;        // m <= 384
+constexpr int kBK = 16;              // k per slice
+constexpr int kStages = 3;           // slices in the ring
+constexpr int kAStride = kRows + 4;  // floats per k-row of A and of an x slice
 
-__host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
+__host__ __device__ inline int n_groups(int m) { return (m + kGroup - 1) / kGroup; }
 
-// Shared memory, in floats: two (kRows x mp) tiles | W panel (mk x kPanel).
+// Floats of one ring stage: a W slice (kBK x 64 G) and an x slice (kBK x kAStride).
+__host__ __device__ inline size_t stage_floats(int m) {
+  return (size_t)kBK * (kGroup * n_groups(m) + kAStride);
+}
+
+// Shared memory, in floats: A (64 G x kAStride) | kStages stages.
 __host__ __device__ inline size_t smem_floats(int m) {
-  const int mp = round_up(m, kPad);
-  const int mk = round_up(m, 4);
-  return 2 * (size_t)kRows * mp + (size_t)mk * kPanel;
+  return (size_t)kGroup * n_groups(m) * kAStride + kStages * stage_floats(m);
 }
 
-// out = in W for one (kRows, mp) tile; W is (m, m) row-major in device
-// memory, streamed through shared memory (Wp) in kPanel-column panels.
-// Columns >= m of out are zero.  in and out are distinct tiles; returns
-// after a barrier.
-__device__ void tile_gemm(const float* __restrict__ in, float* __restrict__ out,
-                          const float* __restrict__ W, int m, int mp, float* Wp) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int mk = round_up(m, 4);
-  for (int j0 = 0; j0 < mp; j0 += kPanel) {
-    __syncthreads();  // the input tile is written; the last panel is consumed
-    for (int e = tid; e < mk * kPanel; e += kThreads) {
-      const int k = e / kPanel, j = j0 + e % kPanel;
-      Wp[e] = k < m && j < m ? W[(size_t)k * m + j] : 0.0f;
+// Asynchronous global -> shared copies, zero-filled when !valid (src-size 0).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issue the copies of W rows [k0, k0 + kBK) x columns [0, 64 G) into the slice
+// Ws (row stride 64 G); rows and columns >= m are zero-filled by the copies.
+// Thread t copies row t / 16 of the slice, from column 4 (t % 16) (16-byte
+// copies) or t % 16 (4-byte) on in steps of 64 or 16 columns: one base
+// address a thread, and a warp reads 2 rows of contiguous bytes.
+template <int G>
+__device__ __forceinline__ void load_w(float* Ws, const float* __restrict__ W, int m, int k0,
+                                       bool vec) {
+  constexpr int kWidth = kGroup * G;
+  const int kk = threadIdx.x / 16, c = threadIdx.x % 16;
+  const bool row_ok = k0 + kk < m;
+  const float* src = W + (size_t)(k0 + kk) * m;
+  float* dst = Ws + kk * kWidth;
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int j = 4 * c + 64 * i;
+      const bool ok = row_ok && j < m;
+      cp_async16(dst + j, ok ? src + j : W, ok);
     }
-    __syncthreads();
-    float acc[kWarpRows][2];
+  } else {
 #pragma unroll
-    for (int i = 0; i < kWarpRows; ++i) acc[i][0] = acc[i][1] = 0.0f;
-    for (int k = 0; k < mk; k += 4) {
-      const float* w = Wp + (size_t)k * kPanel;
-      float w0[4], w1[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        w0[t] = w[t * kPanel + lane];
-        w1[t] = w[t * kPanel + 32 + lane];
-      }
-#pragma unroll
-      for (int i = 0; i < kWarpRows; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(&in[(warp * kWarpRows + i) * mp + k]);
-        acc[i][0] += a.x * w0[0];
-        acc[i][0] += a.y * w0[1];
-        acc[i][0] += a.z * w0[2];
-        acc[i][0] += a.w * w0[3];
-        acc[i][1] += a.x * w1[0];
-        acc[i][1] += a.y * w1[1];
-        acc[i][1] += a.z * w1[2];
-        acc[i][1] += a.w * w1[3];
-      }
+    for (int i = 0; i < 4 * G; ++i) {
+      const int j = c + 16 * i;
+      const bool ok = row_ok && j < m;
+      cp_async4(dst + j, ok ? src + j : W, ok);
     }
+  }
+}
+
+// Issue the copies of x rows [row0, row0 + 64) x columns [k0, k0 + kBK) into
+// the slice Xs transposed, Xs[kk][r] = x[row0 + r][k0 + kk]; zero for rows >=
+// n or columns >= m.  Thread t copies column t % 16 of rows t / 16 + 16 i: a
+// warp reads 2 rows x 16 columns (64 contiguous bytes a row) a copy.  xt is
+// x + (row0 + t / 16) m + t % 16, rows_left = n - row0 - t / 16 clamped to
+// [0, 64].
+__device__ __forceinline__ void load_x(float* Xs, const float* __restrict__ x, const float* xt,
+                                       int rows_left, int m, int k0) {
+  const int kk = threadIdx.x % 16, r = threadIdx.x / 16;
+  const bool col_ok = k0 + kk < m;
 #pragma unroll
-    for (int i = 0; i < kWarpRows; ++i) {
-      const int row = warp * kWarpRows + i;
+  for (int i = 0; i < kRows / 16; ++i) {
+    const bool ok = col_ok && 16 * i < rows_left;
+    cp_async4(Xs + kk * kAStride + r + 16 * i, ok ? xt + k0 + (size_t)16 * i * m : x, ok);
+  }
+}
+
+// This thread's 8 rows of the k-row Ak and its columns of the W row Wk.
+template <int G>
+__device__ __forceinline__ void load_frag(float (&a)[kWarpRows], float (&b)[2 * G],
+                                          const float* Ak, const float* Wk) {
+  constexpr int kQuads = G / 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float4 lo = *reinterpret_cast<const float4*>(Ak + warp * kWarpRows);
+  const float4 hi = *reinterpret_cast<const float4*>(Ak + warp * kWarpRows + 4);
+  a[0] = lo.x; a[1] = lo.y; a[2] = lo.z; a[3] = lo.w;
+  a[4] = hi.x; a[5] = hi.y; a[6] = hi.z; a[7] = hi.w;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = j0 + 32 * h + lane;
-        if (j < mp) out[row * mp + j] = j < m ? acc[i][h] : 0.0f;
+  for (int q = 0; q < kQuads; ++q) {
+    const float4 w = *reinterpret_cast<const float4*>(Wk + 128 * q + 4 * lane);
+    b[4 * q] = w.x; b[4 * q + 1] = w.y; b[4 * q + 2] = w.z; b[4 * q + 3] = w.w;
+  }
+  if (G % 2) {
+    const float2 w = *reinterpret_cast<const float2*>(Wk + 128 * kQuads + 2 * lane);
+    b[4 * kQuads] = w.x;
+    b[4 * kQuads + 1] = w.y;
+  }
+}
+
+// Column of the accumulator acc[.][j] of this lane.
+template <int G>
+__device__ __forceinline__ int column(int j) {
+  constexpr int kQuads = G / 2;
+  const int lane = threadIdx.x & 31;
+  return j < 4 * kQuads ? 128 * (j / 4) + 4 * lane + j % 4 : 128 * kQuads + 2 * lane + j % 2;
+}
+
+// acc += As[0 : kBK] (k-major, this warp's rows) x Ws (this lane's columns).
+template <int G>
+__device__ __forceinline__ void mma_slice(float (&acc)[kWarpRows][2 * G], const float* As,
+                                          const float* Ws) {
+  constexpr int kWidth = kGroup * G;
+  float a[2][kWarpRows], b[2][2 * G];
+  load_frag<G>(a[0], b[0], As, Ws);
+#pragma unroll
+  for (int kk = 0; kk < kBK; ++kk) {
+    if (kk + 1 < kBK)  // the next k's fragments, while this k's FFMAs issue
+      load_frag<G>(a[(kk + 1) & 1], b[(kk + 1) & 1], As + (kk + 1) * kAStride,
+                   Ws + (kk + 1) * kWidth);
+    // Column-major order: 8 FFMAs in a row share the W operand.
+#pragma unroll
+    for (int j = 0; j < 2 * G; ++j)
+#pragma unroll
+      for (int i = 0; i < kWarpRows; ++i) acc[i][j] = fmaf(a[kk & 1][i], b[kk & 1][j], acc[i][j]);
+  }
+}
+
+// A[column(j)][8 warp + i] = acc[i][j]: two float4 stores a column.
+template <int G>
+__device__ __forceinline__ void store_a(float* A, const float (&acc)[kWarpRows][2 * G]) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < 2 * G; ++j) {
+    float* col = A + column<G>(j) * kAStride + warp * kWarpRows;
+    *reinterpret_cast<float4*>(col) = make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+    *reinterpret_cast<float4*>(col + 4) =
+        make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
+  }
+}
+
+// out[row0 + 8 warp + i][column(j)] = acc[i][j] for rows < n and columns < m;
+// vector stores (a lane's 4 or 2 adjacent columns) when m % 4 == 0 and out is
+// 16-byte aligned.
+template <int G>
+__device__ __forceinline__ void store_out(float* __restrict__ out,
+                                          const float (&acc)[kWarpRows][2 * G],
+                                          long long row0, long long n, int m, bool vec) {
+  constexpr int kQuads = G / 2;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kWarpRows; ++i) {
+    const long long row = row0 + warp * kWarpRows + i;
+    if (row >= n) break;
+    float* o = out + row * m;
+    if (vec) {
+#pragma unroll
+      for (int q = 0; q < kQuads; ++q) {
+        const int c = column<G>(4 * q);
+        if (c < m)
+          *reinterpret_cast<float4*>(o + c) =
+              make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
+      }
+      if (G % 2) {
+        const int c = column<G>(4 * kQuads);
+        if (c < m)
+          *reinterpret_cast<float2*>(o + c) = make_float2(acc[i][4 * kQuads], acc[i][4 * kQuads + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2 * G; ++j) {
+        const int c = column<G>(j);
+        if (c < m) o[c] = acc[i][j];
       }
     }
   }
-  __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int G>
+__global__ void __launch_bounds__(kThreads, 1)
 gemm_chain_kernel(const float* __restrict__ x, const float* __restrict__ W,
-                  float* __restrict__ out, long long n, int m, int reps,
-                  long long n_tiles) {
+                  float* __restrict__ out, long long n, int m, int reps, long long n_tiles) {
+  constexpr int kWidth = kGroup * G;
+  constexpr int kStage = kBK * (kWidth + kAStride);  // stage_floats(m), in floats
   extern __shared__ float4 smem4[];
-  const int mp = round_up(m, kPad);
   float* A = reinterpret_cast<float*>(smem4);
-  float* B = A + (size_t)kRows * mp;
-  float* Wp = B + (size_t)kRows * mp;
-  const int tid = threadIdx.x;
+  float* ring = A + kWidth * kAStride;  // stage s: W slice, then x slice
+  const int n_slices = (m + kBK - 1) / kBK;
+  const bool vec_w = m % 4 == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0;
+  const bool vec_out = m % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
 
-  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const long long row0 = t * kRows;
-    __syncthreads();  // the previous tile's result is written out
-    for (int e = tid; e < kRows * mp; e += kThreads) {
-      const long long row = row0 + e / mp;
-      const int j = e % mp;
-      A[e] = row < n && j < m ? x[row * m + j] : 0.0f;
+  // The ring: one commit group per step (empty past the last step), so
+  // wait_group<kStages - 2> at step q means step q's slices have landed.
+  // Steps run over (tile, product, slice); the issue side runs kStages - 1
+  // steps ahead of the compute side.
+  int issue_tile = blockIdx.x;
+  int issue_slice = 0, issue_rep = 0, issue_stage = 0;
+  auto issue = [&]() {
+    if (issue_tile < n_tiles) {
+      float* stage = ring + issue_stage * kStage;
+      load_w<G>(stage, W, m, issue_slice * kBK, vec_w);
+      if (issue_rep == 0) {
+        const long long row = (long long)issue_tile * kRows + threadIdx.x / 16;
+        load_x(stage + kBK * kWidth, x, x + row * m + threadIdx.x % 16,
+               (int)max(0LL, min(n - row, (long long)kRows)), m, issue_slice * kBK);
+      }
+      if (++issue_slice == n_slices) {
+        issue_slice = 0;
+        if (++issue_rep == reps) {
+          issue_rep = 0;
+          issue_tile += gridDim.x;
+        }
+      }
+      issue_stage = issue_stage + 1 == kStages ? 0 : issue_stage + 1;
     }
-    float* cur = A;
-    float* nxt = B;
+    cp_async_commit();
+  };
+  for (int s = 0; s < kStages - 1; ++s) issue();
+
+  int read_stage = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     for (int r = 0; r < reps; ++r) {
-      tile_gemm(cur, nxt, W, m, mp, Wp);  // ends with a barrier
-      float* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-    }
-    for (int e = tid; e < kRows * m; e += kThreads) {
-      const long long row = row0 + e / m;
-      if (row < n) out[row * m + e % m] = cur[(e / m) * mp + e % m];
+      float acc[kWarpRows][2 * G];
+#pragma unroll
+      for (int i = 0; i < kWarpRows; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * G; ++j) acc[i][j] = 0.0f;
+      for (int s = 0; s < n_slices; ++s) {
+        cp_async_wait<kStages - 2>();
+        // This step's slices are in for every thread; the stage the next
+        // issue overwrites was read by all at the last step; A is written.
+        __syncthreads();
+        issue();
+        const float* stage = ring + read_stage * kStage;
+        mma_slice<G>(acc, r == 0 ? stage + kBK * kWidth : A + s * kBK * kAStride, stage);
+        read_stage = read_stage + 1 == kStages ? 0 : read_stage + 1;
+      }
+      if (r + 1 < reps) {
+        __syncthreads();  // every read of A by this product is done
+        store_a<G>(A, acc);
+      } else {
+        store_out<G>(out, acc, (long long)t * kRows, n, m, vec_out);
+      }
     }
   }
+  cp_async_wait<0>();
+}
+
+template <int G>
+int launch(const float* x, const float* W, float* out, long long n, int m, int reps, int n_ctas,
+           cudaStream_t stream) {
+  const size_t bytes = smem_floats(m) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_chain_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_tiles = (n + kRows - 1) / kRows;
+  gemm_chain_kernel<G><<<n_ctas, kThreads, bytes, stream>>>(x, W, out, n, m, reps, n_tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -154,19 +336,22 @@ long long gemm_chain_smem_bytes(int m) {
   return (long long)(smem_floats(m) * sizeof(float));
 }
 
-// out (n, m) = x (n, m) W^reps, W (m, m), all row-major f32, reps >= 1;
-// n_ctas CTAs stride over the ceil(n / 32) row tiles.  Returns
-// cudaGetLastError() of the launch.
+// out (n, m) = x (n, m) W^reps, W (m, m), all row-major f32, 1 <= m <= 384,
+// reps >= 1; n_ctas CTAs stride over the ceil(n / 64) row tiles.  Returns
+// cudaGetLastError() of the launch (cudaErrorInvalidValue for m out of range).
 int gemm_chain(const float* x, const float* W, float* out, long long n, int m, int reps,
                int n_ctas, void* stream) {
-  const size_t bytes = smem_floats(m) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const long long n_tiles = (n + kRows - 1) / kRows;
-  gemm_chain_kernel<<<n_ctas, kThreads, bytes, (cudaStream_t)stream>>>(x, W, out, n, m, reps,
-                                                                      n_tiles);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  static_assert(kMaxGroups == 6, "one case per G below");
+  switch (n_groups(m)) {
+    case 1: return launch<1>(x, W, out, n, m, reps, n_ctas, s);
+    case 2: return launch<2>(x, W, out, n, m, reps, n_ctas, s);
+    case 3: return launch<3>(x, W, out, n, m, reps, n_ctas, s);
+    case 4: return launch<4>(x, W, out, n, m, reps, n_ctas, s);
+    case 5: return launch<5>(x, W, out, n, m, reps, n_ctas, s);
+    case 6: return launch<6>(x, W, out, n, m, reps, n_ctas, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

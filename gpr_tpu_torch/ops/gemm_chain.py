@@ -3,18 +3,50 @@
 The counterpart of ``k_chain`` in ``probes/r3_roofline_probe.py``, the
 roofline probe's speed-of-light kernel: the intermediate product never
 leaves the SM.  A CUDA tensor goes to the hand-written kernel of
-``csrc/gemm_chain.cu`` (plain f32 FMA, the backward kernel's product loop);
-a CPU tensor goes to the plain twin :func:`_gemm_chain_reference`, which
-also serves f64 on the card when called directly.  There is no fallback
-between the two: a CUDA tensor the kernel does not take raises.
+``csrc/gemm_chain.cu`` (plain f32 FMA, a register-tiled product loop fed by
+a ``cp.async`` ring of W and x slices); a CPU tensor goes to the plain twin
+:func:`_gemm_chain_reference`, which also serves f64 on the card when called
+directly.  There is no fallback between the two: a CUDA tensor the kernel
+does not take raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ..numerics.linalg import matmul
 from ._build import load_library
+
+# The kernel's launch geometry; csrc/gemm_chain.cu holds the same constants.
+ROWS = 64  # rows per tile (one CTA's 8 warps x 8 rows)
+GROUP = 64  # columns per group: 2 a lane
+MAX_GROUPS = 6  # the kernel is instantiated for G = 1..6
+MAX_M = GROUP * MAX_GROUPS
+BK = 16  # k per slice (W rows, x columns)
+STAGES = 3  # stages of the cp.async ring (a W slice and an x slice)
+A_STRIDE = ROWS + 4  # floats per k-row of the tile and of an x slice
+
+
+class Geometry(NamedTuple):
+    groups: int  # G = ceil(m / 64): the kernel's instantiation
+    width: int  # padded columns, 64 G
+    smem_bytes: int  # dynamic shared memory of one CTA
+    n_tiles: int  # 64-row tiles
+    n_ctas: int  # CTAs launched: one per SM, at most one per tile
+
+
+def _geometry(n: int, m: int, sm_count: int) -> Geometry:
+    """The kernel's launch for x (n, m) on a device of ``sm_count`` SMs."""
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"m={m}: the gemm_chain kernel takes 1 <= m <= "
+                         f"{MAX_M} columns (use _gemm_chain_reference)")
+    groups = -(-m // GROUP)
+    width = GROUP * groups
+    smem = 4 * (width * A_STRIDE + STAGES * BK * (width + A_STRIDE))
+    n_tiles = -(-n // ROWS)
+    return Geometry(groups, width, smem, n_tiles, min(sm_count, n_tiles))
 
 
 @torch.no_grad()
@@ -54,9 +86,9 @@ def _check(x, w, reps):
 def gemm_chain(x: torch.Tensor, w: torch.Tensor, reps: int) -> torch.Tensor:
     """``x @ w`` applied ``reps`` times: x (n, m), w (m, m), float32.
 
-    On CUDA one launch; CTAs (one per SM) stride over 32-row tiles, each
-    tile's products stay in shared memory.  The kernel's shared memory grows
-    with m (192 KB at m = 384); an m the device cannot hold raises.
+    On CUDA one launch; CTAs (one per SM) stride over 64-row tiles, each
+    tile's products stay on the SM.  m above 384, or a shared-memory need
+    (187 KB at m = 384) the device cannot meet, raises.
     """
     _check(x, w, reps)
     if not x.is_cuda:
@@ -64,18 +96,17 @@ def gemm_chain(x: torch.Tensor, w: torch.Tensor, reps: int) -> torch.Tensor:
     lib = load_library()
     n, m = x.shape
     props = torch.cuda.get_device_properties(x.device)
-    smem = lib.gemm_chain_smem_bytes(m)
-    if smem > props.shared_memory_per_block_optin:
+    geo = _geometry(n, m, props.multi_processor_count)
+    if geo.smem_bytes > props.shared_memory_per_block_optin:
         raise ValueError(
-            f"m={m} needs {smem} bytes of shared memory per block; the "
-            f"device allows {props.shared_memory_per_block_optin}"
+            f"m={m} needs {geo.smem_bytes} bytes of shared memory per block; "
+            f"the device allows {props.shared_memory_per_block_optin}"
         )
     out = torch.empty_like(x)
-    n_ctas = min(props.multi_processor_count, -(-n // 32))  # 32-row tiles
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.gemm_chain(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, m,
-                             reps, n_ctas, stream)
+                             reps, geo.n_ctas, stream)
     if err != 0:
         raise RuntimeError(
             f"gemm_chain kernel launch failed: "

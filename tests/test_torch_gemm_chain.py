@@ -18,7 +18,11 @@ from jax.experimental import pallas as pl
 
 from gpr_tpu.ops.fused_stats import _dot3
 from gpr_tpu_torch.ops import gemm_chain
-from gpr_tpu_torch.ops.gemm_chain import _gemm_chain_reference
+from gpr_tpu_torch.ops.gemm_chain import (
+    MAX_M,
+    _gemm_chain_reference,
+    _geometry,
+)
 
 B = 64  # the probe's row block, cut to test size
 
@@ -91,6 +95,49 @@ def test_wrapper_checks_its_inputs():
         gemm_chain(x, w.to("meta"), 1)
 
 
+@pytest.mark.parametrize("m,groups,width", [(1, 1, 64), (37, 1, 64),
+                                             (64, 1, 64), (65, 2, 128),
+                                             (129, 3, 192), (300, 5, 320),
+                                             (384, 6, 384)])
+def test_geometry_pads_m_to_whole_column_groups(m, groups, width):
+    """G = ceil(m / 64) picks the kernel's instantiation; the padded width
+    is 64 G (300 pads to 320, not to the largest width)."""
+    geo = _geometry(1000, m, 132)
+    assert (geo.groups, geo.width) == (groups, width)
+
+
+def test_geometry_shared_memory_fits_one_block_for_every_m():
+    """A tile of the left operand plus three ring stages fit the 232,448
+    bytes a block may opt into on Hopper, for every m the kernel takes, and
+    grow with G only."""
+    smem = [_geometry(1, m, 132).smem_bytes for m in range(1, MAX_M + 1)]
+    assert max(smem) == smem[-1] == 191_232 <= 232_448
+    assert smem == sorted(smem)
+    assert len(set(smem)) == 6
+    assert _geometry(1, 300, 132).smem_bytes == 4 * (320 * 68 + 3 * 16 * (
+        320 + 68))
+
+
+@pytest.mark.parametrize("m", [0, MAX_M + 1, 1000])
+def test_geometry_refuses_m_outside_the_kernel(m):
+    with pytest.raises(ValueError, match=f"m={m}: the gemm_chain kernel "
+                                         f"takes 1 <= m <= 384"):
+        _geometry(1000, m, 132)
+
+
+@pytest.mark.parametrize("n,sms,tiles,ctas", [(1, 132, 1, 1),
+                                              (64, 132, 1, 1),
+                                              (65, 132, 2, 2),
+                                              (100_003, 132, 1563, 132),
+                                              (999_424, 132, 15_616, 132),
+                                              (999_424, 114, 15_616, 114)])
+def test_geometry_launches_one_cta_per_sm_and_no_idle_cta(n, sms, tiles,
+                                                          ctas):
+    geo = _geometry(n, 384, sms)
+    assert (geo.n_tiles, geo.n_ctas) == (tiles, ctas)
+    assert geo.n_ctas <= geo.n_tiles
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -100,10 +147,12 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,reps", [(4096, 384, 4), (1001, 300, 3),
-                                      (31, 37, 1)])
+                                      (31, 37, 1), (100_003, 64, 2),
+                                      (100_003, 65, 3), (100_003, 129, 4)])
 def test_cuda_kernel_matches_twin(cuda_device, n, m, reps):
-    """The f32 kernel against the f64 twin on the same inputs (tail tiles
-    and a panel tail included), one launch; f64 and CPU-w inputs raise."""
+    """The f32 kernel against the f64 twin on the same inputs (ragged row
+    tiles, column groups and k slices included), one launch; f64 and
+    non-contiguous inputs raise."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(n, m, device=cuda_device, generator=g) * 0.1
     w = torch.randn(m, m, device=cuda_device, generator=g) * 0.05
