@@ -9,11 +9,21 @@ Phases, each printed on its own line:
 1. device  -- the card's name and power limit (nvidia-smi), torch and CUDA
    versions.  No GPU: the script raises; there is no CPU path.
 2. build   -- nvcc builds csrc/se_iso_stats.cu, csrc/se_iso_bwd.cu and
-   csrc/gemm_chain.cu for sm_90a side by side (gpr_tpu_torch/_build/), with
-   the ptxas register and spill report.
-3. kernels -- both forward-statistics kernels (f32) against their plain
-   PyTorch twin run in f64 on the card, on the same inputs: G and u within
-   1e-4 relative (Frobenius), the four scalars within 1e-5.
+   csrc/gemm_chain.cu (the first and the last share
+   csrc/fp32_tile.cuh) for sm_90a side by side (gpr_tpu_torch/_build/),
+   with the ptxas register and spill report.
+3. kernels -- both forward-statistics kernels: ptxas's registers and spills
+   of every se_iso_stats_kernel* instantiation (the tiled route's G = 1..6
+   and the wide route, each accumulating and plain; a spill fails);
+   ``ops.fused_stats._geometry``'s route and shared memory equal to the
+   library's for every m in 1..400 at d = 8; then each kernel (f32) against
+   the plain PyTorch twin run in f64 on the card, on the same inputs, at
+   (65,536, d 8, m 300), at 100,003 rows (ragged) for m = 8, 37, 64, 65,
+   129, 200, 300, 383 (every G of the tiled route; 8, 64, 129 and 300 with
+   1,000 rows masked), for d = 3 (m = 30) and d = 20 (m = 300, 777 rows
+   masked), and for m = 400 (the wide
+   route): G and u within 1e-4 relative (Frobenius), the four scalars
+   within 1e-5.
 4. bwd     -- the backward kernel (f32) against its twin run in f64 on the
    card, on the same f32 inputs and the real cotangents of the evidence's
    epilogue, at (65,536, m=300) and (100,003, m=37, 1,000 rows masked):
@@ -26,6 +36,9 @@ Phases, each printed on its own line:
    f64 truth -2123659.4, the f64 twin within 1 nat; the kernel path's
    coefficients within 1e-3 of the twin's and its 1M predicted means
    finite.  Both forward launch counters must be positive after that run.
+   Each forward kernel is then timed at that shape beside its previous
+   version's time there (a constant), with its TFLOP/s, its share of the
+   bound and the SM clock and power draw nvidia-smi sampled meanwhile.
 6. step    -- training: value and gradient (log_ell, log_sf2, z, sigma2) of
    the same evidence through the forward and backward kernels
    (``.backward()``); both counters positive, the evidence within 2e-5
@@ -114,6 +127,22 @@ CHAIN_REPLACES = "probes/r3_roofline_probe.py:98"
 # CUDA events, median of 5, NVIDIA H100 80GB HBM3 at 700.00 W.
 PREV_CHAIN_MS = {(977 * 1024, 384, 1): 25.16, (488 * 2048, 384, 1): 25.20,
                  (488 * 2048, 384, 4): 91.57, (61 * 16_384, 300, 3): 47.44}
+# The previous forward kernel (V in place from 32-column panels staged
+# without prefetch; one CTA per 8,192 rows) at 1M x 8, m = 300: host clock,
+# median of 5, NVIDIA H100 80GB HBM3 at 700.00 W.
+PREV_STATS_MS = {"se_iso_stream_stats_fused_acc": 22.27,
+                 "se_iso_stream_stats_fused": 17.68}
+# (n, d, m, rows masked) of the kernels phase: every G of the tiled route at
+# ragged n, two other d, and the wide route.  At d = 3 the m is small: 100
+# standard-normal inducing points in 3 dimensions give K(Z, Z) a condition
+# number near 5e6, and then even the f32 twin's u lies 8e-5 from the f64
+# twin's (m = 30: 1e5, and 4e-6).
+KERNEL_CASES = (
+    (65_536, D, 300, 0), (100_003, D, 37, 1_000),
+    *((100_003, D, m, 1_000 * (1 - i % 2))
+      for i, m in enumerate((8, 37, 64, 65, 129, 200, 300, 383))),
+    (100_003, 3, 30, 0), (100_003, 20, 300, 777), (100_003, D, 400, 1_000),
+)
 WRAPPERS = {  # every launch-counted wrapper, by name
     **{name: getattr(fused_stats, name) for name in (*KERNELS, BWD_KERNEL)},
     "gemm_chain": gemm_chain,
@@ -188,15 +217,65 @@ def as_f64(args):
     return [None if a is None else a.double() for a in args]
 
 
+def ptxas_report(pattern) -> dict:
+    """{label: (registers, spill store bytes, spill load bytes)} of each
+    kernel whose mangled name matches ``pattern`` in this run's build log
+    (label: the pattern's groups); empty if the library was not built in
+    this run."""
+    build_log = _build.library_path().with_suffix(".log")
+    if not build_log.exists():
+        return {}
+    found, key = {}, None
+    for line in build_log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            hit = re.search(pattern, line)
+            key = hit.groups() if hit else None
+        elif key is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            found[key] = [None, int(st), int(ld)]
+        elif key is not None and "registers" in line and key in found:
+            found[key][0] = int(re.search(r"Used (\d+) registers",
+                                          line).group(1))
+            key = None
+    return {k: tuple(v) for k, v in sorted(found.items(), key=str)}
+
+
+def stats_ptxas() -> None:
+    """Registers and spills of every se_iso_stats_kernel* instantiation:
+    the tiled route's G = 1..6 and the wide route, each with kComp true
+    (se_iso_stats_acc) and false (se_iso_stats_partials)."""
+    report = ptxas_report(r"se_iso_stats_kernel(_wide)?I(?:Li(\d+)E)?Lb(\d)E")
+    names = {(w, g, c): ("wide" if w else f"G={g}") + (" acc" if c == "1"
+                                                       else " partials")
+             for w, g, c in report}
+    log("se_iso_stats ptxas: " + ("; ".join(
+        f"{names[k]}: {r} registers, spill {st}/{ld} bytes"
+        for k, (r, st, ld) in report.items()) or "not built in this run"))
+    if report and (len(report) != 14 or any(
+            st or ld for _, st, ld in report.values())):
+        raise AssertionError(f"se_iso_stats instantiations spill or are "
+                             f"missing: {report}")
+
+
 def kernels_phase(dev) -> None:
+    stats_ptxas()
+    lib = _build.load_library()
+    for m in range(1, 401):
+        geo = fused_stats._geometry(1, m, D, 132)
+        lib_geo = (lib.se_iso_stats_groups(m, D),
+                   lib.se_iso_stats_smem_bytes(m, D))
+        if (geo.groups, geo.smem_bytes) != lib_geo:
+            raise AssertionError(f"m={m}: _geometry's (G, shared memory) "
+                                 f"{geo.groups, geo.smem_bytes} differ from "
+                                 f"the library's {lib_geo}")
     rng = np.random.default_rng(1)
     params = {"log_ell": np.float32(LOG_ELL), "log_sf2": np.float32(LOG_SF2)}
-    for n, m, masked in ((65_536, 300, 0), (100_003, 37, 1_000)):
-        X = torch.as_tensor(rng.standard_normal((n, D)), dtype=torch.float32,
+    for n, d, m, masked in KERNEL_CASES:
+        X = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32,
                             device=dev)
         y = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
                             device=dev)
-        Z = rng.standard_normal((m, D)).astype(np.float32)
+        Z = rng.standard_normal((m, d)).astype(np.float32)
         mask = None
         if masked:
             mask = torch.ones(n, dtype=torch.float32, device=dev)
@@ -209,12 +288,14 @@ def kernels_phase(dev) -> None:
                 *as_f64(args), block_size=BLOCK, acc_dtype=torch.float64)
             if int(want[-1]) != n - masked:
                 raise AssertionError(f"twin counted {int(want[-1])} rows")
+            groups = fused_stats._geometry(n, m, d, 1).groups
+            route = f"G={groups}" if groups else "wide"
             for name in KERNELS:
                 got = getattr(fused_stats, name)(
                     *args, block_size=BLOCK, acc_dtype=torch.float64)
                 torch.cuda.synchronize()
-                check_errors(f"kernels n={n} m={m} masked={masked} {name}",
-                             rel_errors(got, want))
+                check_errors(f"kernels n={n} d={d} m={m} {route} "
+                             f"masked={masked} {name}", rel_errors(got, want))
 
 
 def epilogue_cotangents(kernel64, z64, stats):
@@ -334,6 +415,17 @@ def read_clock_log(proc: subprocess.Popen) -> list[tuple]:
         except ValueError:
             continue
     return samples
+
+
+def clock_window(samples, t0, t1) -> str:
+    """The SM clock range and the peak power among the samples in [t0,
+    t1]."""
+    window = [(mhz, watts) for t, mhz, watts in samples if t0 <= t <= t1]
+    if not window:
+        return "clock not sampled"
+    return (f"SM clock {min(c for c, _ in window)}-"
+            f"{max(c for c, _ in window)} MHz, power up to "
+            f"{max(p for _, p in window):.0f} W")
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -461,6 +553,8 @@ def slice_phase(dev, card: str, data) -> list[dict]:
         plain_ms = median_ms(twin32)
         log(f"time twin f32 forward stats: {plain_ms:.3f} ms ({card})")
         rows = []
+        b = stats_bound(N, D, M)
+        flops = 2.0 * N * (M * D + M * (M + 1) + M)
         for name, replaces in KERNELS.items():
             fn = getattr(fused_stats, name)
 
@@ -472,14 +566,24 @@ def slice_phase(dev, card: str, data) -> list[dict]:
             check_errors(f"slice {name}", errs)
             max_abs = max(float((g - w).abs().max())
                           for g, w in zip(got[:2], want[:2]))
-            ms = median_ms(run)
-            log(f"time {name}: {ms:.3f} ms vs twin {plain_ms:.3f} ms; "
-                f"max |err| of G and u {max_abs:.3e} ({card})")
+            sampler = clock_log()
+            try:
+                t0 = time.time()
+                ms = median_ms(run)
+                t1 = time.time()
+            finally:
+                samples = read_clock_log(sampler)
+            prev = PREV_STATS_MS[name]
+            log(f"time {name}: {ms:.3f} ms (previous kernel {prev:.2f} ms: "
+                f"{prev / ms:.2f}x) = {flops / ms / 1e9:.2f} TFLOP/s = "
+                f"{100 * b['bound_ms'] / ms:.1f} % of the {b['bound_ms']:.3f} "
+                f"ms bound; twin {plain_ms:.3f} ms; max |err| of G and u "
+                f"{max_abs:.3e}; {clock_window(samples, t0, t1)} ({card})")
             rows.append({
                 "name": name, "route": "cuda", "source": SOURCE,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-                **stats_bound(N, D, M), "library_ms": None,
+                **b, "library_ms": None,
             })
 
         for impl in ("fused_acc", "reference"):
@@ -622,24 +726,9 @@ def chain_error(x, w, reps, got=None):
 
 def chain_ptxas() -> dict:
     """{G: (registers, spill store bytes, spill load bytes)} of each
-    gemm_chain_kernel<G> in this run's build log; empty if the library was
-    not built in this run."""
-    build_log = _build.library_path().with_suffix(".log")
-    if not build_log.exists():
-        return {}
-    found, g = {}, None
-    for line in build_log.read_text().splitlines():
-        if "Compiling entry function" in line:
-            hit = re.search(r"gemm_chain_kernelILi(\d+)E", line)
-            g = int(hit.group(1)) if hit else None
-        elif g is not None and "spill stores" in line:
-            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
-            found[g] = [None, int(st), int(ld)]
-        elif g is not None and "registers" in line and g in found:
-            found[g][0] = int(re.search(r"Used (\d+) registers",
-                                        line).group(1))
-            g = None
-    return {g: tuple(v) for g, v in sorted(found.items())}
+    gemm_chain_kernel<G> in this run's build log."""
+    return {int(g): v for (g,), v in
+            ptxas_report(r"gemm_chain_kernelILi(\d+)E").items()}
 
 
 def roofline_phase(dev, card: str) -> dict:
@@ -732,11 +821,7 @@ def roofline_phase(dev, card: str) -> dict:
         b = chain_bound(n, m, reps)
         tflops = 2.0 * n * m * m * reps / ms / 1e9
         prev = PREV_CHAIN_MS[n, m, reps]
-        window = [(mhz, watts) for t, mhz, watts in samples if t0 <= t <= t1]
-        clock = (f"SM clock {min(c for c, _ in window)}-"
-                 f"{max(c for c, _ in window)} MHz, power up to "
-                 f"{max(p for _, p in window):.0f} W" if window
-                 else "clock not sampled")
+        clock = clock_window(samples, t0, t1)
         log(f"time gemm_chain {label} n={n} m={m} reps={reps}: {ms:.3f} ms "
             f"(previous kernel {prev:.2f} ms: {prev / ms:.2f}x) = "
             f"{tflops:.2f} TFLOP/s = {100 * tflops / 67:.1f} % of FP32 "

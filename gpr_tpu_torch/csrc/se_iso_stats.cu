@@ -11,8 +11,8 @@
 //   is  = mask / s,   w = sqrt(is)
 //   G  += (V w)'(V w),  u += V'(is y),
 //   [sum mask log s, sum is y^2, sum is r, sum mask]
-// Nothing n x m leaves the SM: each Knm / V row tile lives in shared memory
-// only, as the Pallas kernel kept it in VMEM.
+// Nothing n x m leaves the SM: each Knm / V row tile lives in registers and
+// shared memory only, as the Pallas kernel kept it in VMEM.
 //
 // What bounds it on this card.  Per row, about m (d + m/2) FMAs for Knm and
 // V and (m + 1)^2 / 2 for the Gram, all plain FP32 on the CUDA cores: no
@@ -20,27 +20,59 @@
 // the Knm/V entries, gpr_tpu/config.py:51-59).  The FP32 FMA rate bounds it
 // (~2 n m (d + 2m) flop per pass); reading X is 32 bytes a row.
 //
-// What the design does about it.
+// Two routes, picked from (m, d) by the host function, never from a failure.
+//
+// The tiled route (m <= 383 and its shared memory within the 227 KB a block
+// may opt into): se_iso_stats_kernel<G, kComp>, G = ceil((m + 1) / 64), on
+// the register-tiled FP32 loop of csrc/fp32_tile.cuh (the GEMM chain's).
+//   * One CTA per SM strides over the 64-row tiles.  U^-1 is the same for
+//     every tile, so it streams in 16-row slices through one 2-stage
+//     cp.async ring that runs on across tiles; a tile's x rides in its first
+//     slice's stage, transposed by 4-byte copies.  The next tile's first
+//     slice is in flight while this tile's row sums and Gram run.  (A third
+//     stage is 3 % faster without the fold below, whose B needs its 22 KB.)
+//   * Knm is formed in registers, in the product loop's layout (x Z' over d
+//     from the x tile and Z^T, then the kernel entry by entry with the same
+//     expression and operation order as the wide route), and goes to A
+//     k-major (A[j][r], zero for j >= m) by store_a.  Formed element by
+//     element from shared memory instead, it cost 1.7 ms more a pass at
+//     m = 300 (ops/stats_variants.py measures each such choice).
+//   * V = Knm U^-1 is mma_slice<G>: a warp owns 8 whole rows, a lane 2 G
+//     columns of each, in registers.  U^-1 must be upper triangular (the
+//     copies read whole rows; the wrapper passes triu(u_inv)): a slice from
+//     row k0 on is zero left of column k0, so the lane column quads wholly
+//     left of it skip their FFMAs (mma_upper).
+//   * rowsq(V) is a register sum and 5 xor shuffles a row; then r, s, is, w.
+//   * A' = [V w | w y | 0] goes from registers to the A buffer, row-major
+//     with row stride mp = round_up(m + 1, 8), after one barrier: the Gram's
+//     per-thread 8 x 8 blocks read rows.
+//   * The fold: where a second A' tile, B, fits in shared memory too (G <= 5
+//     at d = 8), every other tile's A' goes to B and waits, and the Gram
+//     update runs over both tiles' 128 rows.  That halves the partial's
+//     read-modify-write traffic (below), which cost a third of the kernel's
+//     time at m = 300 when every tile paid it.
+//
+// The wide route (every other (m, d) whose shared memory fits, up to about
+// m = 540 at d = 8): se_iso_stats_kernel_wide<kComp>, the first kernel.  A
+// CTA walks a contiguous chunk of tiles_per_cta tiles; V is formed in place
+// over the Knm tile, panel by panel from the right, with 32-column panels of
+// U^-1 staged synchronously (half the flops of a full product; only the
+// upper triangle of u_inv is read).
+//
+// Both routes:
 //   * The TPU ran its grid in order and carried sums in VMEM.  Here each CTA
-//     walks a contiguous chunk of 64-row tiles (the wrapper's block_size
-//     rows) and writes ONE partial; the wrapper reduces the partials in f64
-//     (no float atomics: they are neither deterministic nor compensable).
-//   * The m x m Gram does not fit in one SM (360 KB at m = 300).  A CTA
-//     keeps the (64, mp) tile A = [V w | w y | 0] in shared memory and adds
+//     writes ONE partial; the wrapper reduces the partials in f64 (no float
+//     atomics: they are neither deterministic nor compensable).
+//   * The m x m Gram does not fit in one SM (360 KB at m = 300).  A CTA adds
 //     A'A block by block (8 x 8 register blocks, upper triangle only, u as
 //     column m) into its partial in device memory, read-modify-write per
-//     tile: 190 KB (380 KB as hi/lo) a CTA at m = 300, which the 50 MB L2
-//     holds for about one wave of CTAs.
-//   * U^-1 is upper triangular, so column j of V needs Knm columns <= j.
-//     V is formed IN PLACE over Knm, panel by panel from the right, with
-//     the U^-1 panel streamed through shared memory: half the flops of a
-//     full GEMM and no second (64, m) buffer.  Only the upper triangle of
-//     u_inv is read.
-//   * Rows >= n are masked in the kernel (no host padding), and columns
-//     >= m of the tile are zero.
+//     update: 190 KB (380 KB as hi/lo) a CTA at m = 300, 50 MB for 132 CTAs
+//     as hi/lo, the whole L2.
+//   * Rows >= n are masked in the kernel (no host padding), and columns >= m
+//     of the tile are zero.
 //   * se_iso_stats_acc accumulates each Gram entry, u and the four scalars
-//     as two-sum (hi, lo) pairs across its tiles; se_iso_stats_partials
-//     adds the Gram plainly (the wrapper sums its partials in f64).  Both
+//     as two-sum (hi, lo) pairs across its tiles; se_iso_stats_partials adds
+//     the Gram plainly (the wrapper sums its partials in f64).  Both
 //     compensate the scalars.  Two-sum has no products, so FMA contraction
 //     cannot break it; its adds are written in the order they must run.
 
@@ -48,12 +80,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fp32_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kRows = 64;      // rows per tile
-constexpr int kPanel = 32;     // V panel width (one column per lane)
-constexpr int kBlk = 8;        // Gram register block edge
+constexpr int kPanel = 32;  // wide route: V panel width (one column per lane)
+constexpr int kBlk = 8;     // Gram register block edge
+constexpr int kMaxTiledM = kGroup * kMaxGroups - 1;  // column m (u) in the last group
+constexpr long long kSmemOptin = 232448;  // bytes a block may opt into on sm_90
+constexpr int kRing = 2;    // tiled route: stages of the U^-1 ring
+constexpr int kVecs = kBlk * kBlk / 4;  // float4s of a Gram block
 
 __host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
@@ -65,24 +101,413 @@ __device__ inline void two_sum(float& hi, float& lo, float x) {
   lo = lo + err;
 }
 
-// Shared memory, in floats: tile (kRows x mp) | U^-1 panel (mk x kPanel) |
-// Z^T (d x mp) | |z|^2 (mp) | x tile (kRows x d) | w, w*y (2 kRows) |
+// Wide route shared memory, in floats: tile (kRows x mp) | U^-1 panel (mk x
+// kPanel) | Z^T (d x mp) | |z|^2 (mp) | x tile (kRows x d) | w, w*y (2 kRows) |
 // scalar reduction (8 warps x 4).
-__host__ __device__ inline size_t smem_floats(int m, int d) {
+__host__ __device__ inline size_t wide_smem_floats(int m, int d) {
   int mp = round_up(m + 1, kBlk);
   int mk = round_up(m, 4);
   return (size_t)kRows * mp + (size_t)mk * kPanel + (size_t)d * mp + mp +
          (size_t)kRows * d + 2 * kRows + 32;
 }
 
+__host__ __device__ inline int tiled_groups(int m) { return (m + kGroup) / kGroup; }
+
+// Floats of one tiled ring stage: a U^-1 slice (kBK x 64 G) and an x tile
+// (d x kRows, transposed).
+__host__ __device__ inline size_t tiled_stage_floats(int G, int d) {
+  return (size_t)kBK * kGroup * G + (size_t)d * kRows;
+}
+
+// Tiled route shared memory, in floats: A (64 G x kAStride) | kRing stages |
+// Z^T (d x 64 G) | |z|^2 (64 G) | scalar reduction (8 warps x 4) | when
+// fold, B (kRows x mp): the held A' of every other tile.
+__host__ __device__ inline size_t tiled_smem_floats(int m, int d, bool fold) {
+  const int G = tiled_groups(m), width = kGroup * G;
+  return (size_t)width * kAStride + kRing * tiled_stage_floats(G, d) + (size_t)d * width +
+         width + 32 + (fold ? (size_t)kRows * round_up(m + 1, kBlk) : 0);
+}
+
+inline bool fits(size_t floats) { return (long long)(floats * sizeof(float)) <= kSmemOptin; }
+
+// G of the tiled route at (m, d), or 0 for the wide route.
+inline int route_groups(int m, int d) {
+  if (m < 1 || m > kMaxTiledM) return 0;
+  return fits(tiled_smem_floats(m, d, false)) ? tiled_groups(m) : 0;
+}
+
+// Whether the tiled route at (m, d) folds two tiles into each Gram update.
+inline bool route_fold(int m, int d) {
+  return route_groups(m, d) && fits(tiled_smem_floats(m, d, true));
+}
+
+inline size_t smem_bytes(int m, int d) {
+  return (route_groups(m, d) ? tiled_smem_floats(m, d, route_fold(m, d))
+                             : wide_smem_floats(m, d)) *
+         sizeof(float);
+}
+
+// r, s, is and w of one row from ss = rowsq(V): returns w, sets wy = w y and,
+// when acc, adds the row's terms to l = [lds, yiy, isr, cnt].
+__device__ __forceinline__ float row_weight(float ss, long long row, long long n,
+                                            const float* __restrict__ y,
+                                            const float* __restrict__ mask, float sf2,
+                                            float sigma2, float& wy, float (&l)[4], bool acc) {
+  const float mk_r = row < n ? (mask ? mask[row] : 1.0f) : 0.0f;
+  const float yv = row < n ? y[row] : 0.0f;
+  const bool live = mk_r > 0.0f;
+  const float rr = sf2 - ss;
+  const float s = live ? rr + sigma2 : 1.0f;
+  const float is = mk_r / s;
+  const float w = live ? sqrtf(is) : 0.0f;
+  wy = w * yv;
+  if (acc) {
+    l[0] += mk_r * logf(s);
+    l[1] += is * yv * yv;
+    l[2] += is * rr;
+    l[3] += mk_r;
+  }
+  return w;
+}
+
+// Thread 0 folds the 8 warps' scalar sums in red into its (hi, lo) carries.
+__device__ __forceinline__ void fold_scalars(const float* red, float (&s_hi)[4],
+                                             float (&s_lo)[4]) {
+  for (int c = 0; c < 4; ++c) {
+    float tsum = 0.0f;
+    for (int w8 = 0; w8 < kThreads / 32; ++w8) tsum += red[w8 * 4 + c];
+    two_sum(s_hi[c], s_lo[c], tsum);
+  }
+}
+
+// Ask L2 for the hi and lo float4s of block b of a compensated partial ahead
+// of their read-modify-write: no registers, and the HBM reads overlap the
+// FFMAs that come first.  The hi/lo partials of 132 CTAs fill the 50 MB L2
+// (at m = 300), so they live in HBM; the plain ones take half and stay in
+// L2, where the prefetch measured no gain.
 template <bool kComp>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void prefetch_block(const float* part, int nblk, int b) {
+  if (!kComp || b >= nblk) return;
+  const float4* p = reinterpret_cast<const float4*>(part) + b;
+#pragma unroll
+  for (int v = 0; v < 2 * kVecs; ++v)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + (size_t)v * nblk));
+}
+
+// The upper 8 x 8 blocks of S'S into the CTA's partial part: S is the kRows
+// rows (row-major, stride mp) at S0, then, when S1 is not null, those at S1.
+// The part holds float4 v of block b (entries v / 2, 4 (v % 2) .. + 3) at
+// [v][b], the hi half, then, when kComp, the lo half: a warp's access to one
+// v is 512 contiguous bytes (a block's 256 contiguous bytes a thread cost
+// the compensated entry 2.2 ms more a pass at m = 300).  Written on the
+// CTA's first update, read-modify-write after.
+template <bool kComp>
+__device__ __forceinline__ void add_gram(const float* S0, const float* S1, int mp,
+                                         float* __restrict__ part, bool first) {
+  const int nb8 = mp / kBlk;
+  const int nblk = nb8 * (nb8 + 1) / 2;
+  for (int b = threadIdx.x; b < nblk; b += kThreads) {
+    int bi = 0, rem = b;
+    while (rem >= nb8 - bi) {
+      rem -= nb8 - bi;
+      ++bi;
+    }
+    const int bj = bi + rem;
+    if (!first) prefetch_block<kComp>(part, nblk, b + kThreads);  // the next round's
+    float acc[kBlk][kBlk];
+#pragma unroll
+    for (int i = 0; i < kBlk; ++i)
+#pragma unroll
+      for (int j = 0; j < kBlk; ++j) acc[i][j] = 0.0f;
+    for (const float* S = S0; S; S = S == S0 ? S1 : nullptr) {
+      // 4 rows a trip: the next rows' loads issue under this row's FFMAs
+#pragma unroll 4
+      for (int r = 0; r < kRows; ++r) {
+        const float4* ra = reinterpret_cast<const float4*>(&S[r * mp + bi * kBlk]);
+        const float4* rb = reinterpret_cast<const float4*>(&S[r * mp + bj * kBlk]);
+        float4 a0 = ra[0], a1 = ra[1], b0 = rb[0], b1 = rb[1];
+        float av[kBlk] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        float bv[kBlk] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < kBlk; ++i)
+#pragma unroll
+          for (int j = 0; j < kBlk; ++j) acc[i][j] += av[i] * bv[j];
+      }
+    }
+    float4* hi4 = reinterpret_cast<float4*>(part) + b;
+    float4* lo4 = hi4 + (size_t)kVecs * nblk;
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+      const int i = v / 2, j = (v % 2) * 4;
+      const size_t at = (size_t)v * nblk;
+      float4 tv = make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+      if (first) {
+        hi4[at] = tv;
+        if (kComp) lo4[at] = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else if (kComp) {
+        float4 h = hi4[at], l = lo4[at];
+        two_sum(h.x, l.x, tv.x);
+        two_sum(h.y, l.y, tv.y);
+        two_sum(h.z, l.z, tv.z);
+        two_sum(h.w, l.w, tv.w);
+        hi4[at] = h;
+        lo4[at] = l;
+      } else {
+        float4 h = hi4[at];
+        h.x += tv.x;
+        h.y += tv.y;
+        h.z += tv.z;
+        h.w += tv.w;
+        hi4[at] = h;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void write_scalars(float* __restrict__ sums_part,
+                                              const float (&s_hi)[4], const float (&s_lo)[4]) {
+  float* sp = sums_part + (size_t)blockIdx.x * 8;
+  for (int c = 0; c < 4; ++c) {
+    sp[c] = s_hi[c];
+    sp[4 + c] = s_lo[c];
+  }
+}
+
+// ---------------------------------------------------------------- tiled route
+
+// Issue the copies of the x tile rows [row0, row0 + kRows) into Xs
+// transposed, Xs[k][r] = X[row0 + r][k]; zero for rows >= n.
+__device__ __forceinline__ void load_x_tile(float* Xs, const float* __restrict__ X,
+                                            long long row0, long long n, int d) {
+  const float* base = X + row0 * d;
+  const long long left = (n - row0) * d;  // valid elements from base on
+  for (int e = threadIdx.x; e < kRows * d; e += kThreads) {
+    const bool ok = e < left;
+    cp_async4(Xs + (e % d) * kRows + e / d, ok ? base + e : X, ok);
+  }
+}
+
+// acc += As x Ws for the slice of the upper-triangular U^-1 from row k0 on:
+// its columns < k0 are zero, so the column quads (128 columns each) wholly
+// below k0 skip their FFMAs.  At m = 300 that is 29 % of V's FFMAs.
+template <int G>
+__device__ __forceinline__ void mma_upper(float (&acc)[kWarpRows][2 * G], const float* As,
+                                          const float* Ws, int k0) {
+  if constexpr (G > 4) {
+    if (k0 >= 256) return mma_slice<G, 2>(acc, As, Ws);
+  }
+  if constexpr (G > 2) {
+    if (k0 >= 128) return mma_slice<G, 1>(acc, As, Ws);
+  }
+  mma_slice<G>(acc, As, Ws);
+}
+
+// A[8 warp + i][column(j)] = acc[i][j] row-major with row stride mp, for the
+// columns < mp: one float4 (float2) store a lane per row and column quad
+// (pair).
+template <int G>
+__device__ __forceinline__ void store_rows(float* A, const float (&acc)[kWarpRows][2 * G],
+                                           int mp) {
+  constexpr int kQuads = G / 2;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kWarpRows; ++i) {
+    float* row = A + (warp * kWarpRows + i) * mp;
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) {
+      const int c = column<G>(4 * q);
+      if (c < mp)
+        *reinterpret_cast<float4*>(row + c) =
+            make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
+    }
+    if (G % 2) {
+      const int c = column<G>(4 * kQuads);
+      if (c < mp)
+        *reinterpret_cast<float2*>(row + c) = make_float2(acc[i][4 * kQuads], acc[i][4 * kQuads + 1]);
+    }
+  }
+}
+
+template <int G, bool kComp>
+__global__ void __launch_bounds__(kThreads, 1)
 se_iso_stats_kernel(const float* __restrict__ X, const float* __restrict__ y,
                     const float* __restrict__ mask, const float* __restrict__ z,
-                    const float* __restrict__ u_inv, long long n, int d, int m,
-                    float q, float log_sf2, float sigma2, int tiles_per_cta,
-                    long long n_tiles, float* __restrict__ gram_part,
-                    float* __restrict__ sums_part) {
+                    const float* __restrict__ u_inv, long long n, int d, int m, float q,
+                    float log_sf2, float sigma2, long long n_tiles, bool fold,
+                    float* __restrict__ gram_part, float* __restrict__ sums_part) {
+  constexpr int kWidth = kGroup * G;
+  extern __shared__ float4 smem4[];
+  float* A = reinterpret_cast<float*>(smem4);
+  float* ring = A + kWidth * kAStride;
+  const int stage = (int)tiled_stage_floats(G, d);
+  float* Zt = ring + kRing * stage;
+  float* z2 = Zt + d * kWidth;
+  float* red = z2 + kWidth;
+  float* B = red + 32;  // when fold
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int mp = round_up(m + 1, kBlk);
+  const int n_slices = (m + kBK - 1) / kBK;
+  const float sf2 = expf(log_sf2);
+  const bool vec_u = m % 4 == 0 && (reinterpret_cast<uintptr_t>(u_inv) & 15) == 0;
+
+  for (int e = tid; e < d * kWidth; e += kThreads) {
+    int k = e / kWidth, j = e % kWidth;
+    Zt[e] = j < m ? z[(size_t)j * d + k] : 0.0f;
+  }
+  for (int j = tid; j < kWidth; j += kThreads) {
+    float acc = 0.0f;
+    for (int k = 0; k < d && j < m; ++k) {
+      float v = z[(size_t)j * d + k];
+      acc += v * v;
+    }
+    z2[j] = acc;
+  }
+
+  // The ring: one commit group per step (empty past the last step), so
+  // wait_group<kRing - 2> at step q means step q's copies have landed.
+  // Steps run over (tile, slice); the issue side runs kRing - 1 steps ahead
+  // of the compute side.
+  long long issue_tile = blockIdx.x;
+  int issue_slice = 0, issue_stage = 0;
+  auto issue = [&]() {
+    if (issue_tile < n_tiles) {
+      float* st = ring + issue_stage * stage;
+      load_w<G>(st, u_inv, m, issue_slice * kBK, vec_u);
+      if (issue_slice == 0) load_x_tile(st + kBK * kWidth, X, issue_tile * kRows, n, d);
+      if (++issue_slice == n_slices) {
+        issue_slice = 0;
+        issue_tile += gridDim.x;
+      }
+      issue_stage = issue_stage + 1 == kRing ? 0 : issue_stage + 1;
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < kRing - 1; ++s) issue();
+
+  // scalar carries live in thread 0: [lds, yiy, isr, cnt] as (hi, lo)
+  float s_hi[4] = {0.f, 0.f, 0.f, 0.f};
+  float s_lo[4] = {0.f, 0.f, 0.f, 0.f};
+  const int nblk = (mp / kBlk) * (mp / kBlk + 1) / 2;
+  float* part = gram_part + (size_t)blockIdx.x * (kComp ? 2 : 1) * nblk * kBlk * kBlk;
+
+  int read_stage = 0;
+  bool held = false, first = true;  // B holds the last tile's A'; no update yet
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long row0 = t * kRows;
+
+    // 1. Knm into A, k-major (rows j >= m zero), from registers: x Z' in
+    //    the product loop's layout (8 rows x 2 G columns a thread, over d),
+    //    then the kernel entry by entry.
+    cp_async_wait<kRing - 2>();
+    __syncthreads();  // this tile's x is in; the last tile's A' is consumed
+    if (!first && (!fold || held || t + gridDim.x >= n_tiles))
+      prefetch_block<kComp>(part, nblk, tid);  // this tile updates: its first round
+    {
+      const float* xs = ring + read_stage * stage + kBK * kWidth;
+      float acc[kWarpRows][2 * G], x2[kWarpRows];
+#pragma unroll
+      for (int i = 0; i < kWarpRows; ++i) {
+        x2[i] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 2 * G; ++j) acc[i][j] = 0.0f;
+      }
+      for (int k = 0; k < d; ++k) {
+        float a[kWarpRows], b[2 * G];
+        load_frag<G>(a, b, xs + k * kRows, Zt + k * kWidth);
+#pragma unroll
+        for (int i = 0; i < kWarpRows; ++i) {
+          x2[i] += a[i] * a[i];
+#pragma unroll
+          for (int j = 0; j < 2 * G; ++j) acc[i][j] += a[i] * b[j];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2 * G; ++j) {
+        const int c = column<G>(j);
+        const float zc = z2[c];
+#pragma unroll
+        for (int i = 0; i < kWarpRows; ++i) {
+          const float d2 = fmaxf(x2[i] - 2.0f * acc[i][j] + zc, 0.0f);
+          acc[i][j] = c < m ? expf(log_sf2 + q * d2) : 0.0f;
+        }
+      }
+      store_a<G>(A, acc);
+    }
+
+    // 2. V = Knm U^-1 in registers, U^-1 through the ring
+    float acc[kWarpRows][2 * G];
+#pragma unroll
+    for (int i = 0; i < kWarpRows; ++i)
+#pragma unroll
+      for (int j = 0; j < 2 * G; ++j) acc[i][j] = 0.0f;
+    for (int s = 0; s < n_slices; ++s) {
+      cp_async_wait<kRing - 2>();
+      // This step's slice is in for every thread; the stage the next issue
+      // overwrites was read by all at the last step; Knm is written.
+      __syncthreads();
+      issue();
+      mma_upper<G>(acc, A + s * kBK * kAStride, ring + read_stage * stage, s * kBK);
+      read_stage = read_stage + 1 == kRing ? 0 : read_stage + 1;
+    }
+
+    // 3. per-row r, s, is, w from rowsq(V) (columns >= m of V are zero);
+    //    lane 0 of each warp sums its 8 rows' scalar terms
+    float w[kWarpRows], wy[kWarpRows];
+    float l[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kWarpRows; ++i) {
+      float ss = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2 * G; ++j) ss += acc[i][j] * acc[i][j];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      w[i] = row_weight(ss, row0 + warp * kWarpRows + i, n, y, mask, sf2, sigma2, wy[i], l,
+                        lane == 0);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) red[warp * 4 + c] = l[c];
+    }
+
+    // 4. A' = [V w | w y | 0], over the Knm tile or, to be held for the
+    //    next tile's update, into B
+#pragma unroll
+    for (int j = 0; j < 2 * G; ++j) {
+      const bool u_col = column<G>(j) == m;
+#pragma unroll
+      for (int i = 0; i < kWarpRows; ++i) acc[i][j] = u_col ? wy[i] : acc[i][j] * w[i];
+    }
+    const bool hold = fold && !held && t + gridDim.x < n_tiles;
+    __syncthreads();  // every read of Knm is done
+    store_rows<G>(hold ? B : A, acc, mp);
+    __syncthreads();
+    if (tid == 0) fold_scalars(red, s_hi, s_lo);
+    if (hold) {
+      held = true;
+      continue;
+    }
+
+    // 5. upper 8 x 8 blocks of A'A (of the held tile's rows too) into this
+    //    CTA's partial
+    add_gram<kComp>(held ? B : A, held ? A : nullptr, mp, part, first);
+    held = first = false;
+  }
+  cp_async_wait<0>();
+  if (tid == 0) write_scalars(sums_part, s_hi, s_lo);
+}
+
+// ----------------------------------------------------------------- wide route
+
+template <bool kComp>
+__global__ void __launch_bounds__(kThreads, 1)  // the grid is one CTA an SM
+se_iso_stats_kernel_wide(const float* __restrict__ X, const float* __restrict__ y,
+                         const float* __restrict__ mask, const float* __restrict__ z,
+                         const float* __restrict__ u_inv, long long n, int d, int m, float q,
+                         float log_sf2, float sigma2, int tiles_per_cta, long long n_tiles,
+                         float* __restrict__ gram_part, float* __restrict__ sums_part) {
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);
   const int mp = round_up(m + 1, kBlk);
@@ -192,44 +617,20 @@ se_iso_stats_kernel(const float* __restrict__ X, const float* __restrict__ y,
     __syncthreads();
 
     // 4. per-row r, s, is, w; scalar sums (each warp owns 8 rows)
-    float l_lds = 0.f, l_yiy = 0.f, l_isr = 0.f, l_cnt = 0.f;
+    float l[4] = {0.f, 0.f, 0.f, 0.f};
     for (int i = 0; i < 8; ++i) {
       const int r = warp * 8 + i;
       float ss = 0.0f;
       for (int j = lane; j < m; j += 32) ss += S[r * mp + j] * S[r * mp + j];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-      if (lane == 0) {
-        const long long row = row0 + r;
-        const float mk_r = row < n ? (mask ? mask[row] : 1.0f) : 0.0f;
-        const float yv = row < n ? y[row] : 0.0f;
-        const bool live = mk_r > 0.0f;
-        const float rr = sf2 - ss;
-        const float s = live ? rr + sigma2 : 1.0f;
-        const float is = mk_r / s;
-        const float w = live ? sqrtf(is) : 0.0f;
-        wrow[r] = w;
-        wyrow[r] = w * yv;
-        l_lds += mk_r * logf(s);
-        l_yiy += is * yv * yv;
-        l_isr += is * rr;
-        l_cnt += mk_r;
-      }
+      if (lane == 0) wrow[r] = row_weight(ss, row0 + r, n, y, mask, sf2, sigma2, wyrow[r], l, true);
     }
     if (lane == 0) {
-      red[warp * 4 + 0] = l_lds;
-      red[warp * 4 + 1] = l_yiy;
-      red[warp * 4 + 2] = l_isr;
-      red[warp * 4 + 3] = l_cnt;
+      for (int c = 0; c < 4; ++c) red[warp * 4 + c] = l[c];
     }
     __syncthreads();
-    if (tid == 0) {
-      for (int c = 0; c < 4; ++c) {
-        float tsum = 0.0f;
-        for (int w8 = 0; w8 < kThreads / 32; ++w8) tsum += red[w8 * 4 + c];
-        two_sum(s_hi[c], s_lo[c], tsum);
-      }
-    }
+    if (tid == 0) fold_scalars(red, s_hi, s_lo);
 
     // 5. A = [V w | w y | 0]
     for (int e = tid; e < kRows * mp; e += kThreads) {
@@ -240,65 +641,26 @@ se_iso_stats_kernel(const float* __restrict__ X, const float* __restrict__ y,
     __syncthreads();
 
     // 6. upper 8 x 8 blocks of A'A into this CTA's partial
-    for (int b = tid; b < nblk; b += kThreads) {
-      int bi = 0, rem = b;
-      while (rem >= nb8 - bi) {
-        rem -= nb8 - bi;
-        ++bi;
-      }
-      const int bj = bi + rem;
-      float acc[kBlk][kBlk];
-#pragma unroll
-      for (int i = 0; i < kBlk; ++i)
-#pragma unroll
-        for (int j = 0; j < kBlk; ++j) acc[i][j] = 0.0f;
-      for (int r = 0; r < kRows; ++r) {
-        const float4* ra = reinterpret_cast<const float4*>(&S[r * mp + bi * kBlk]);
-        const float4* rb = reinterpret_cast<const float4*>(&S[r * mp + bj * kBlk]);
-        float4 a0 = ra[0], a1 = ra[1], b0 = rb[0], b1 = rb[1];
-        float av[kBlk] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        float bv[kBlk] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < kBlk; ++i)
-#pragma unroll
-          for (int j = 0; j < kBlk; ++j) acc[i][j] += av[i] * bv[j];
-      }
-      float4* hi4 = reinterpret_cast<float4*>(part + (size_t)b * kBlk * kBlk);
-      float4* lo4 = reinterpret_cast<float4*>(part + ((size_t)nblk + b) * kBlk * kBlk);
-#pragma unroll
-      for (int v = 0; v < kBlk * kBlk / 4; ++v) {
-        const int i = v / 2, j = (v % 2) * 4;
-        float4 tv = make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
-        if (t == t0) {
-          hi4[v] = tv;
-          if (kComp) lo4[v] = make_float4(0.f, 0.f, 0.f, 0.f);
-        } else if (kComp) {
-          float4 h = hi4[v], l = lo4[v];
-          two_sum(h.x, l.x, tv.x);
-          two_sum(h.y, l.y, tv.y);
-          two_sum(h.z, l.z, tv.z);
-          two_sum(h.w, l.w, tv.w);
-          hi4[v] = h;
-          lo4[v] = l;
-        } else {
-          float4 h = hi4[v];
-          h.x += tv.x;
-          h.y += tv.y;
-          h.z += tv.z;
-          h.w += tv.w;
-          hi4[v] = h;
-        }
-      }
-    }
+    add_gram<kComp>(S, nullptr, mp, part, t == t0);
   }
 
-  if (tid == 0) {
-    float* sp = sums_part + (size_t)blockIdx.x * 8;
-    for (int c = 0; c < 4; ++c) {
-      sp[c] = s_hi[c];
-      sp[4 + c] = s_lo[c];
-    }
-  }
+  if (tid == 0) write_scalars(sums_part, s_hi, s_lo);
+}
+
+template <int G, bool kComp>
+int launch_tiled(const float* X, const float* y, const float* mask, const float* z,
+                 const float* u_inv, long long n, int d, int m, float q, float log_sf2,
+                 float sigma2, int n_ctas, float* gram_part, float* sums_part,
+                 cudaStream_t stream) {
+  const bool fold = route_fold(m, d);
+  const size_t bytes = tiled_smem_floats(m, d, fold) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(se_iso_stats_kernel<G, kComp>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_tiles = (n + kRows - 1) / kRows;
+  se_iso_stats_kernel<G, kComp><<<n_ctas, kThreads, bytes, stream>>>(
+      X, y, mask, z, u_inv, n, d, m, q, log_sf2, sigma2, n_tiles, fold, gram_part, sums_part);
+  return (int)cudaGetLastError();
 }
 
 template <bool kComp>
@@ -306,12 +668,27 @@ int launch(const float* X, const float* y, const float* mask, const float* z,
            const float* u_inv, long long n, int d, int m, float q, float log_sf2,
            float sigma2, int n_ctas, int tiles_per_cta, float* gram_part,
            float* sums_part, cudaStream_t stream) {
-  const size_t bytes = smem_floats(m, d) * sizeof(float);
+  static_assert(kMaxGroups == 6, "one case per G below");
+#define TILED(G)                                                                            \
+  case G:                                                                                   \
+    return launch_tiled<G, kComp>(X, y, mask, z, u_inv, n, d, m, q, log_sf2, sigma2, n_ctas, \
+                                  gram_part, sums_part, stream)
+  switch (route_groups(m, d)) {
+    TILED(1);
+    TILED(2);
+    TILED(3);
+    TILED(4);
+    TILED(5);
+    TILED(6);
+    default: break;
+  }
+#undef TILED
+  const size_t bytes = wide_smem_floats(m, d) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      se_iso_stats_kernel<kComp>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      se_iso_stats_kernel_wide<kComp>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const long long n_tiles = (n + kRows - 1) / kRows;
-  se_iso_stats_kernel<kComp><<<n_ctas, kThreads, bytes, stream>>>(
+  se_iso_stats_kernel_wide<kComp><<<n_ctas, kThreads, bytes, stream>>>(
       X, y, mask, z, u_inv, n, d, m, q, log_sf2, sigma2, tiles_per_cta, n_tiles,
       gram_part, sums_part);
   return (int)cudaGetLastError();
@@ -324,22 +701,28 @@ extern "C" {
 // Rows per tile; the wrapper sizes the grid and the partials from it.
 int se_iso_stats_rows_per_tile() { return kRows; }
 
-// Dynamic shared memory one CTA needs at (m, d), in bytes.
-long long se_iso_stats_smem_bytes(int m, int d) {
-  return (long long)(smem_floats(m, d) * sizeof(float));
-}
+// The route at (m, d): G = ceil((m + 1) / 64) of the tiled route, or 0 for
+// the wide route.
+int se_iso_stats_groups(int m, int d) { return route_groups(m, d); }
+
+// Dynamic shared memory one CTA of the route at (m, d) needs, in bytes.
+long long se_iso_stats_smem_bytes(int m, int d) { return (long long)smem_bytes(m, d); }
 
 const char* se_iso_stats_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// CTA c reduces tiles [c * tiles_per_cta, (c + 1) * tiles_per_cta) of the
-// ceil(n / 64) row tiles; every CTA must own at least one tile.
-// gram_part: (n_ctas, 2, nblk, 8, 8) f32, hi then lo, nblk = nb8 (nb8 + 1) / 2
-// upper 8 x 8 blocks of the (mp, mp) Gram of [V w | w y], mp = 8 nb8 >= m + 1,
+// The tiled route's n_ctas CTAs stride over the ceil(n / 64) row tiles
+// (n_ctas <= tiles; tiles_per_cta is not read); on the wide route CTA c
+// reduces tiles [c * tiles_per_cta, (c + 1) * tiles_per_cta), and every CTA
+// must own at least one tile.
+// gram_part: (n_ctas, 2, 16, nblk, 4) f32, hi then lo: float4 v (entries
+// v / 2, 4 (v % 2) .. + 3) of each of the nblk = nb8 (nb8 + 1) / 2 upper 8 x 8
+// blocks of the (mp, mp) Gram of [V w | w y], mp = 8 nb8 >= m + 1, the blocks
 // in row-major order; sums_part: (n_ctas, 2, 4), hi then lo, of
 // [sum mask log s, sum is y^2, sum is r, sum mask].  mask may be NULL (all
-// rows live).  Returns cudaGetLastError() of the launch.
+// rows live).  u_inv must be upper triangular.  Returns cudaGetLastError() of
+// the launch.
 int se_iso_stats_acc(const float* X, const float* y, const float* mask,
                      const float* z, const float* u_inv, long long n, int d,
                      int m, float q, float log_sf2, float sigma2, int n_ctas,
@@ -349,7 +732,7 @@ int se_iso_stats_acc(const float* X, const float* y, const float* mask,
                       tiles_per_cta, gram_part, sums_part, (cudaStream_t)stream);
 }
 
-// gram_part: (n_ctas, 1, nblk, 8, 8) f32, plain sums; sums_part as above.
+// gram_part: (n_ctas, 1, 16, nblk, 4) f32, plain sums; sums_part as above.
 int se_iso_stats_partials(const float* X, const float* y, const float* mask,
                           const float* z, const float* u_inv, long long n, int d,
                           int m, float q, float log_sf2, float sigma2, int n_ctas,

@@ -4,7 +4,8 @@ The sources are compiled at first use with ``nvcc`` -- one process per
 source, all started together -- and linked into one shared library with a
 plain C interface, under ``gpr_tpu_torch/_build/``, loaded with ``ctypes``:
 no PyTorch headers, so a build takes seconds, not minutes.  The
-library's name carries a hash of the sources and flags, so an edit rebuilds;
+library's name carries a hash of the sources, the headers they include
+(``csrc/*.cuh``) and the flags, so an edit to any of them rebuilds;
 a file lock keeps concurrent processes from building the same library twice.
 
 Unlike the CSV parser's binding (``gpr_tpu/io/native.py``), nothing here
@@ -27,6 +28,8 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 SOURCES = ("se_iso_stats.cu", "se_iso_bwd.cu", "gemm_chain.cu")
+# csrc/fp32_tile.cuh holds the FP32 product loop of gemm_chain.cu and
+# se_iso_stats.cu; every csrc/*.cuh is part of the library's key.
 # Plain IEEE f32: no --use_fast_math (the f32 evidence is only as good as the
 # Knm / V entries).  -Xptxas -v writes registers and spills to the build log.
 NVCC_FLAGS = (
@@ -76,9 +79,11 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256()
-    for name in SOURCES:
+    headers = sorted(p.name for p in _CSRC.glob("*.cuh"))
+    for name in (*SOURCES, *headers):
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -147,6 +152,8 @@ def load_library() -> ctypes.CDLL:
         smem = getattr(lib, f"{prefix}_smem_bytes")
         smem.argtypes = [ctypes.c_int, ctypes.c_int]
         smem.restype = ctypes.c_longlong
+    lib.se_iso_stats_groups.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.se_iso_stats_groups.restype = ctypes.c_int
     lib.se_iso_stats_error_string.argtypes = [ctypes.c_int]
     lib.se_iso_stats_error_string.restype = ctypes.c_char_p
     return lib

@@ -17,12 +17,16 @@ kernel of ``csrc/se_iso_stats.cu`` (f32 compute, built at first use by
 fallback between the two: a CUDA launch that fails raises.
 
 ``block_size`` is the number of rows reduced into one partial: one loop
-block of the twin, one CTA of the kernel (a multiple of the kernel's row
-tile: 64 rows forward, 32 backward).  Each wrapper counts its kernel
-launches in ``.launches``.
+block of the twin and, for the backward kernel, one CTA (a multiple of the
+kernel's row tile: 64 rows forward, 32 backward).  The forward kernels take
+their grid from the device instead (:func:`_geometry`: one CTA per SM), and
+only check ``block_size``.  Each wrapper counts its kernel launches in
+``.launches``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -32,6 +36,54 @@ from ..numerics.linalg import matmul
 from ._build import load_library
 
 _BLK = 8  # edge of the kernel's Gram register blocks (csrc kBlk)
+# The forward kernels' launch geometry; csrc/se_iso_stats.cu and
+# csrc/fp32_tile.cuh hold the same constants.
+ROWS = 64  # rows per tile
+GROUP = 64  # columns per group of the tiled route: 2 a lane
+MAX_TILED_M = GROUP * 6 - 1  # G <= 6, and column m (u) in the last group
+BK = 16  # U^-1 rows per ring slice
+RING = 2  # stages of the tiled route's cp.async ring
+A_STRIDE = ROWS + 4  # floats per k-row of the Knm tile
+PANEL = 32  # the wide route's U^-1 panel width
+SMEM_OPTIN = 232_448  # bytes of shared memory a block may opt into (sm_90)
+
+
+class Geometry(NamedTuple):
+    groups: int  # G = ceil((m + 1) / 64) of the tiled route; 0: the wide route
+    fold: bool  # the tiled route folds two tiles into each Gram update
+    smem_bytes: int  # dynamic shared memory of one CTA
+    n_tiles: int  # 64-row tiles
+    n_ctas: int  # CTAs launched, each with at least one tile
+    tiles_per_cta: int  # the wide route's contiguous chunk (the most a CTA takes)
+    nblk: int  # upper 8 x 8 blocks of the (m + 1)-square Gram of [V w | w y]
+
+
+def _geometry(n: int, m: int, d: int, sm_count: int) -> Geometry:
+    """The forward kernels' route and launch for n rows, m inducing points
+    and d inputs on a device of ``sm_count`` SMs.  The tiled route takes
+    m <= 383 where its shared memory fits, and folds two tiles into each
+    update of its Gram partial where a second row tile (B) fits too; the
+    wide route every other m.  Both launch at most one CTA per SM."""
+    nb8 = -(-(m + 1) // _BLK)
+    nblk = nb8 * (nb8 + 1) // 2
+    mp = nb8 * _BLK
+    n_tiles = -(-n // ROWS)
+    n_ctas = min(sm_count, n_tiles)
+    groups = -(-(m + 1) // GROUP)
+    width = GROUP * groups
+    tiled = 4 * (width * A_STRIDE + RING * (BK * width + d * ROWS)
+                 + d * width + width + 32)
+    if m <= MAX_TILED_M and tiled <= SMEM_OPTIN:
+        fold = tiled + 4 * ROWS * mp <= SMEM_OPTIN
+        return Geometry(groups, fold, tiled + fold * 4 * ROWS * mp, n_tiles,
+                        n_ctas, -(-n_tiles // n_ctas), nblk)
+    mk = -(-m // 4) * 4
+    wide = 4 * (ROWS * mp + mk * PANEL + d * mp + mp + ROWS * d + 2 * ROWS
+                + 32)
+    # contiguous chunks: every CTA must own a tile
+    tiles_per_cta = -(-n_tiles // n_ctas)
+    return Geometry(0, False, wide, n_tiles, -(-n_tiles // tiles_per_cta),
+                    tiles_per_cta, nblk)
 
 
 @torch.no_grad()
@@ -74,9 +126,26 @@ def _unpack_gram(blocks, m):
     return full[:m, :m], full[:m, m]
 
 
-def _validate(lib, prefix, X, y, z, u_inv, mask, block_size):
-    """Check the tensors and the grid for the kernels named ``prefix``;
-    return (n, d, m, n_ctas, tiles_per_cta)."""
+def _partials(geo, comp, device):
+    """The per-CTA partials the forward kernels write: the Gram's upper
+    8 x 8 blocks (hi, lo when ``comp``), float4 v of block b (entries v // 2,
+    4 (v % 2) .. + 3) at [v, b], and the four scalars' (hi, lo)."""
+    gram = torch.empty(geo.n_ctas, 2 if comp else 1, _BLK * _BLK // 4,
+                       geo.nblk, 4, dtype=torch.float32, device=device)
+    return gram, torch.empty(geo.n_ctas, 2, 4, dtype=torch.float32,
+                             device=device)
+
+
+def _fold_partials(gram_part):
+    """The cross-CTA reduce in f64 (hi and lo folded too), deterministic:
+    (n_ctas, pairs, 16, nblk, 4) partials to the (nblk, 8, 8) blocks."""
+    blocks = gram_part.sum(dim=(0, 1), dtype=torch.float64)
+    return blocks.permute(1, 0, 2).reshape(-1, _BLK, _BLK)
+
+
+def _validate(X, y, z, u_inv, mask, block_size, rows):
+    """Check the tensors, and ``block_size`` against the kernel's ``rows``
+    per tile; return (n, d, m)."""
     n, d = X.shape
     m = z.shape[0]
     _check("X", X, (n, d))
@@ -87,21 +156,20 @@ def _validate(lib, prefix, X, y, z, u_inv, mask, block_size):
         _check("mask", mask, (n,))
     if n == 0:
         raise ValueError("X has no rows")
-    rows = getattr(lib, f"{prefix}_rows_per_tile")()
     if block_size <= 0 or block_size % rows:
         raise ValueError(
             f"block_size must be a positive multiple of {rows} on CUDA, got "
             f"{block_size}"
         )
-    smem = getattr(lib, f"{prefix}_smem_bytes")(m, d)
-    smem_max = torch.cuda.get_device_properties(
-        X.device).shared_memory_per_block_optin
-    if smem > smem_max:
+    return n, d, m
+
+
+def _check_smem(props, smem, m, d):
+    if smem > props.shared_memory_per_block_optin:
         raise ValueError(
             f"m={m}, d={d} needs {smem} bytes of shared memory per block; "
-            f"the device allows {smem_max}"
+            f"the device allows {props.shared_memory_per_block_optin}"
         )
-    return n, d, m, -(-n // block_size), block_size // rows
 
 
 def _raise_on(lib, err, what):
@@ -123,15 +191,14 @@ def _host_scalars(device, *values):
 def _launch(entry, comp, log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
             block_size, acc_dtype):
     lib = load_library()
-    n, d, m, n_ctas, tiles_per_cta = _validate(lib, "se_iso_stats", X, y, z,
-                                               u_inv, mask, block_size)
-    nb8 = -(-(m + 1) // _BLK)
-    nblk = nb8 * (nb8 + 1) // 2
-    pairs = 2 if comp else 1
-    gram_part = torch.empty(n_ctas, pairs, nblk, _BLK, _BLK,
-                            dtype=torch.float32, device=X.device)
-    sums_part = torch.empty(n_ctas, 2, 4, dtype=torch.float32,
-                            device=X.device)
+    n, d, m = _validate(X, y, z, u_inv, mask, block_size,
+                        lib.se_iso_stats_rows_per_tile())
+    props = torch.cuda.get_device_properties(X.device)
+    geo = _geometry(n, m, d, props.multi_processor_count)
+    _check_smem(props, geo.smem_bytes, m, d)
+    if geo.groups:  # the tiled route's copies read whole rows of u_inv
+        u_inv = u_inv.triu()
+    gram_part, sums_part = _partials(geo, comp, X.device)
     log_ell = torch.as_tensor(log_ell, device=X.device).detach()
     q, lsf2, s2 = _host_scalars(X.device, -0.5 * torch.exp(-2.0 * log_ell),
                                 log_sf2, sigma2)
@@ -141,14 +208,12 @@ def _launch(entry, comp, log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
             X.data_ptr(), y.data_ptr(),
             None if mask is None else mask.data_ptr(),
             z.data_ptr(), u_inv.data_ptr(), n, d, m, q, lsf2, s2,
-            n_ctas, tiles_per_cta, gram_part.data_ptr(),
+            geo.n_ctas, geo.tiles_per_cta, gram_part.data_ptr(),
             sums_part.data_ptr(), stream,
         )
     _raise_on(lib, err, "se_iso_stats")
-    # the cross-CTA reduce in f64 (hi + lo folded first): deterministic
-    blocks = gram_part.to(torch.float64).sum(dim=(0, 1))
-    gram, u_vec = _unpack_gram(blocks, m)
-    sums = sums_part.to(torch.float64).sum(dim=(0, 1))
+    gram, u_vec = _unpack_gram(_fold_partials(gram_part), m)
+    sums = sums_part.sum(dim=(0, 1), dtype=torch.float64)
     return (gram.to(acc_dtype), u_vec.to(acc_dtype),
             *(s.to(acc_dtype) for s in sums.unbind()))
 
@@ -158,11 +223,12 @@ def se_iso_stream_stats_fused_acc(log_ell, log_sf2, z, u_inv, sigma2, X, y,
                                   acc_dtype=torch.float32):
     """Single-pass fused statistics with compensated in-kernel accumulation.
 
-    On CUDA every CTA walks its ``block_size`` rows in 64-row tiles and
-    carries G, u and the four scalars as two-sum (hi, lo) pairs; the
-    wrapper folds and sums the per-CTA partials in f64 and returns them in
-    ``acc_dtype``.  ``u_inv`` must be upper triangular (the inverse of the
-    upper Cholesky factor): the kernel reads only that triangle.
+    On CUDA one CTA per SM walks 64-row tiles and carries G, u and the
+    four scalars as two-sum (hi, lo) pairs; the wrapper folds and sums the
+    per-CTA partials in f64 and returns them in ``acc_dtype``.
+    ``block_size`` sets the twin's blocks; on CUDA it must be a multiple of
+    64 and no longer sets the grid.  ``u_inv`` must be upper triangular
+    (the inverse of the upper Cholesky factor): only that triangle is read.
     """
     if not X.is_cuda:
         return _se_iso_stats_reference(
@@ -180,11 +246,12 @@ def se_iso_stream_stats_fused(log_ell, log_sf2, z, u_inv, sigma2, X, y,
                               acc_dtype=torch.float32):
     """Per-block partial statistics, summed outside the kernel in f64.
 
-    The parity variant: each CTA adds its tiles' Gram plainly in f32 (the
-    scalars stay compensated) and writes one partial per ``block_size``
-    rows; the wrapper sums the partials in f64, as the JAX wrapper sums its
-    per-tile partials, and returns them in ``acc_dtype``.  ``u_inv`` must be
-    upper triangular.
+    The parity variant: each CTA (one per SM) adds its tiles' Gram plainly
+    in f32 (the scalars stay compensated) and writes one partial; the
+    wrapper sums the partials in f64, as the JAX wrapper sums its per-tile
+    partials, and returns them in ``acc_dtype``.  ``block_size`` as in
+    :func:`se_iso_stream_stats_fused_acc`.  ``u_inv`` must be upper
+    triangular.
     """
     if not X.is_cuda:
         return _se_iso_stats_reference(
@@ -221,8 +288,12 @@ def _se_iso_bwd_reference(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
 def _launch_bwd(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask, gbar, ubar,
                 lds_bar, yiy_bar, isr_bar, block_size, acc_dtype, need_y):
     lib = load_library()
-    n, d, m, n_ctas, tiles_per_cta = _validate(lib, "se_iso_bwd", X, y, z,
-                                               u_inv, mask, block_size)
+    n, d, m = _validate(X, y, z, u_inv, mask, block_size,
+                        lib.se_iso_bwd_rows_per_tile())
+    _check_smem(torch.cuda.get_device_properties(X.device),
+                lib.se_iso_bwd_smem_bytes(m, d), m, d)
+    n_ctas = -(-n // block_size)
+    tiles_per_cta = block_size // lib.se_iso_bwd_rows_per_tile()
     f32, f64 = torch.float32, torch.float64
     # once per backward, outside the kernel (as the JAX wrapper does):
     # UG = U^-1 (G-bar + G-bar'), and U^-T row-major for K-bar = V-bar U^-T

@@ -167,9 +167,14 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("wrapper", WRAPPERS)
-@pytest.mark.parametrize("n,masked,m", [(4096, 0, 300), (1000, 37, 37)])
+@pytest.mark.parametrize("n,masked,m", [(4096, 0, 300), (1000, 37, 37),
+                                         (4096, 0, 64), (1000, 37, 65),
+                                         (4096, 100, 129), (4096, 0, 383),
+                                         (4096, 0, 400)])
 def test_cuda_kernel_matches_twin(rng, cuda_device, wrapper, n, masked, m):
-    """The f32 kernel against the f64 twin on the same (f32) inputs."""
+    """The f32 kernel against the f64 twin on the same (f32) inputs: the
+    tiled route at G = 1, 2, 3, 5 and 6 column groups, the wide route at
+    m = 400."""
     X, y, Z, mask = _setup(rng, n=n, d=8, m=m, masked=masked)
     f32 = np.float32
     X, y, Z = X.astype(f32), y.astype(f32), Z.astype(f32)
@@ -189,20 +194,27 @@ def test_cuda_kernel_matches_twin(rng, cuda_device, wrapper, n, masked, m):
 
 
 def test_build_is_keyed_by_sources_and_failure_raises(tmp_path, monkeypatch):
-    """An edited source gets a new library; a failed build raises with the
-    compiler's output, and nothing falls back to the plain twin."""
+    """An edited source, or an edited header it includes, gets a new
+    library; a failed build raises with the compiler's output, and nothing
+    falls back to the plain twin."""
     from gpr_tpu_torch.ops import _build
 
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    for name in _build.SOURCES:
+    headers = [p.name for p in _build._CSRC.glob("*.cuh")]
+    assert "fp32_tile.cuh" in headers
+    for name in (*_build.SOURCES, *headers):
         (csrc / name).write_text((_build._CSRC / name).read_text())
     src = (csrc / "se_iso_stats.cu").read_text()
     monkeypatch.setattr(_build, "_CSRC", csrc)
     monkeypatch.setattr(_build, "_BUILD", tmp_path / "_build")
     first = _build.library_path()
     (csrc / "se_iso_stats.cu").write_text(src + "\n// edited\n")
-    assert _build.library_path() != first
+    second = _build.library_path()
+    assert second != first
+    header = csrc / "fp32_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path() not in (first, second)
 
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 2\n")
