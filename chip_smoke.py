@@ -9,9 +9,10 @@ Phases, each printed on its own line:
 1. device  -- the card's name and power limit (nvidia-smi), torch and CUDA
    versions.  No GPU: the script raises; there is no CPU path.
 2. build   -- nvcc builds csrc/se_iso_stats.cu, csrc/se_iso_bwd.cu and
-   csrc/gemm_chain.cu (the first and the last share
-   csrc/fp32_tile.cuh) for sm_90a side by side (gpr_tpu_torch/_build/),
-   with the ptxas register and spill report.
+   csrc/gemm_chain.cu (all three on the product loop of
+   csrc/fp32_tile.cuh, the first two sharing csrc/stats_tile.cuh too) for
+   sm_90a side by side (gpr_tpu_torch/_build/), with the ptxas register and
+   spill report.
 3. kernels -- both forward-statistics kernels: ptxas's registers and spills
    of every se_iso_stats_kernel* instantiation (the tiled route's G = 1..6
    and the wide route, each accumulating and plain; a spill fails);
@@ -24,11 +25,19 @@ Phases, each printed on its own line:
    masked), and for m = 400 (the wide
    route): G and u within 1e-4 relative (Frobenius), the four scalars
    within 1e-5.
-4. bwd     -- the backward kernel (f32) against its twin run in f64 on the
-   card, on the same f32 inputs and the real cotangents of the evidence's
-   epilogue, at (65,536, m=300) and (100,003, m=37, 1,000 rows masked):
-   z_bar, triu(u_inv_bar) and y_bar within 1e-4 relative (Frobenius), the
-   three scalar gradients within 1e-4.
+4. bwd     -- the backward kernel: ptxas's registers and spills of every
+   se_iso_bwd_kernel* instantiation (the tiled route's G = 1..5, where a
+   spill fails, and the wide route); ``ops.fused_stats._bwd_geometry``'s
+   route and shared memory equal to the library's for every m in 1..400 at
+   d = 8; then the kernel (f32) against its twin run in f64 on the card, on
+   the same f32 inputs and the real cotangents of the evidence's epilogue,
+   at (65,536, m = 300), at 100,003 rows (ragged) for m = 8, 37, 64, 65,
+   129, 200, 300, 320 (every G of the tiled route; every other one with
+   1,000 rows masked, every third without y_bar), for d = 3 (m = 30) and
+   d = 20 (m = 300, which takes the wide route there), and for m = 336 (the
+   wide route at d = 8, whose shared memory ends there): z_bar,
+   triu(u_inv_bar) and y_bar within 1e-4 relative (Frobenius), the three
+   scalar gradients within 1e-4.
 5. slice   -- serving: SE-iso at n = 1,000,000, d = 8, m = 300, on the data
    draw of bench.py (np.random.default_rng(0): X, y, Z, cast to f32),
    log_ell 0.5, log_sf2 0, sigma2 0.1, jitter 1e-6, block 8,192.  The f32
@@ -43,8 +52,12 @@ Phases, each printed on its own line:
    the same evidence through the forward and backward kernels
    (``.backward()``); both counters positive, the evidence within 2e-5
    relative of the truth, each gradient group within 1e-3 relative
-   (2-norm) of the f64 twin's on the card.  Block 8,192, not bench.py's
-   16,384: 62 CTAs fill half the card's 132 SMs.
+   (2-norm) of the f64 twin's on the card.  The backward kernel is then
+   timed alone at that shape beside its previous version's time there (a
+   constant), with its TFLOP/s, its share of the bound, the bytes of its
+   U^-1 cotangent partials read and written back a step (which the bound
+   does not count), how many CTAs share a partial and what the partials
+   take beside the L2, and the SM clock and power draw sampled meanwhile.
 7. fit     -- ``optim.fit`` for 10 L-BFGS iterations on bench.py's training
    recipe (yf = sin(X (0.3 k + 0.2)) + 0.3 noise, the noise drawn here;
    pack from log_ell 0.5, sigma2 1.0; variational): finite, with a mean NLL
@@ -65,9 +78,9 @@ Phases, each printed on its own line:
    meanwhile.
 9. restarts -- bench.py's training leg: ``optim.fit_restarts`` over the
    log-lengthscale ladder (-1.5, -0.5, 0.5, 1.5), 12 probe iterations,
-   max_iter 60, epsabs 1e-4, rescore_f64 20,000 rows, block 8,192 (not
-   16,384, see 6), then ``optim.polish`` in f64 on the card (20,000 rows,
-   30 iterations, epsabs 1e-3).  Both statistics kernels launched, every
+   max_iter 60, epsabs 1e-4, rescore_f64 20,000 rows, block 8,192, then
+   ``optim.polish`` in f64 on the card (20,000 rows, 30 iterations, epsabs
+   1e-3).  Both statistics kernels launched, every
    probe and rescored value finite, the winner's mean NLL below its start,
    the polish's gradient norm below its start.
 Timings: median of 5 after a warm-up, host clock around synchronised
@@ -132,6 +145,10 @@ PREV_CHAIN_MS = {(977 * 1024, 384, 1): 25.16, (488 * 2048, 384, 1): 25.20,
 # median of 5, NVIDIA H100 80GB HBM3 at 700.00 W.
 PREV_STATS_MS = {"se_iso_stream_stats_fused_acc": 22.27,
                  "se_iso_stream_stats_fused": 17.68}
+# The previous backward kernel (32-row tiles, each product's 64-column
+# panels staged without prefetch, one CTA per 8,192 rows) at 1M x 8, m = 300:
+# host clock, median of 5, NVIDIA H100 80GB HBM3 at 700.00 W.
+PREV_BWD_MS = 78.13
 # (n, d, m, rows masked) of the kernels phase: every G of the tiled route at
 # ragged n, two other d, and the wide route.  At d = 3 the m is small: 100
 # standard-normal inducing points in 3 dimensions give K(Z, Z) a condition
@@ -142,6 +159,16 @@ KERNEL_CASES = (
     *((100_003, D, m, 1_000 * (1 - i % 2))
       for i, m in enumerate((8, 37, 64, 65, 129, 200, 300, 383))),
     (100_003, 3, 30, 0), (100_003, 20, 300, 777), (100_003, D, 400, 1_000),
+)
+# (n, d, m, rows masked, need_y) of the bwd phase: every G of the tiled
+# route at ragged n, two other d (d = 20 at m = 300 takes the wide route),
+# and the wide route's largest m at d = 8.
+BWD_CASES = (
+    (65_536, D, 300, 0, True), (100_003, D, 37, 1_000, True),
+    *((100_003, D, m, 1_000 * (i % 2), i % 3 != 2)
+      for i, m in enumerate((8, 37, 64, 65, 129, 200, 300, 320))),
+    (100_003, 3, 30, 0, True), (100_003, 20, 300, 777, True),
+    (100_003, D, 336, 1_000, True),
 )
 WRAPPERS = {  # every launch-counted wrapper, by name
     **{name: getattr(fused_stats, name) for name in (*KERNELS, BWD_KERNEL)},
@@ -331,15 +358,39 @@ def check_bwd(tag, errs):
             raise AssertionError(f"{tag}: {name} rel err {err:.3e} > 1e-4")
 
 
+def bwd_ptxas() -> None:
+    """Registers and spills of every se_iso_bwd_kernel* instantiation: the
+    tiled route's G = 1..5, which must not spill, and the wide route."""
+    report = ptxas_report(r"se_iso_bwd_kernel(_wide)?(?:ILi(\d+)E)?")
+    log("se_iso_bwd ptxas: " + ("; ".join(
+        ("wide" if w else f"G={g}") + f": {r} registers, spill {st}/{ld} "
+        "bytes" for (w, g), (r, st, ld) in report.items())
+        or "not built in this run"))
+    if report and (len(report) != 6 or any(
+            st or ld for (w, _), (_, st, ld) in report.items() if not w)):
+        raise AssertionError(f"se_iso_bwd instantiations spill or are "
+                             f"missing: {report}")
+
+
 def bwd_phase(dev) -> None:
+    bwd_ptxas()
+    lib = _build.load_library()
+    for m in range(1, 401):
+        geo = fused_stats._bwd_geometry(1, m, D, 132)
+        lib_geo = (lib.se_iso_bwd_groups(m, D),
+                   lib.se_iso_bwd_smem_bytes(m, D))
+        if (geo.groups, geo.smem_bytes) != lib_geo:
+            raise AssertionError(f"m={m}: _bwd_geometry's (G, shared memory) "
+                                 f"{geo.groups, geo.smem_bytes} differ from "
+                                 f"the library's {lib_geo}")
     rng = np.random.default_rng(2)
     params = {"log_ell": np.float32(LOG_ELL), "log_sf2": np.float32(LOG_SF2)}
-    for n, m, masked in ((65_536, 300, 0), (100_003, 37, 1_000)):
-        X = torch.as_tensor(rng.standard_normal((n, D)), dtype=torch.float32,
+    for n, d, m, masked, need_y in BWD_CASES:
+        X = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32,
                             device=dev)
         y = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
                             device=dev)
-        Z = rng.standard_normal((m, D)).astype(np.float32)
+        Z = rng.standard_normal((m, d)).astype(np.float32)
         mask = None
         if masked:
             mask = torch.ones(n, dtype=torch.float32, device=dev)
@@ -355,12 +406,19 @@ def bwd_phase(dev) -> None:
         cot32 = [c.float() for c in epilogue_cotangents(k64, z64, stats)]
         with torch.no_grad():
             got = fused_stats.se_iso_stream_bwd_fused(
-                *args, *cot32, block_size=BLOCK, acc_dtype=torch.float64)
+                *args, *cot32, block_size=BLOCK, acc_dtype=torch.float64,
+                need_y=need_y)
             torch.cuda.synchronize()
             want = fused_stats._se_iso_bwd_reference(
                 *as_f64(args), *as_f64(cot32), block_size=BLOCK,
-                acc_dtype=torch.float64)
-        check_bwd(f"bwd n={n} m={m} masked={masked}", bwd_errors(got, want))
+                acc_dtype=torch.float64, need_y=need_y)
+        if (got[-1] is None) == need_y:
+            raise AssertionError(f"need_y={need_y} but y_bar is {got[-1]}")
+        groups = fused_stats._bwd_geometry(n, m, d, 1).groups
+        check_bwd(f"bwd n={n} d={d} m={m} "
+                  + (f"G={groups}" if groups else "wide")
+                  + f" masked={masked} need_y={need_y}",
+                  bwd_errors(got, want))
 
 
 def median_ms(fn, reps=5) -> float:
@@ -652,19 +710,41 @@ def step_phase(dev, card: str, data) -> dict:
         check_bwd(f"step {BWD_KERNEL}", bwd_errors(got, want))
         max_abs = max(float((got[2] - want[2]).abs().max()),
                       float((got[3].triu() - want[3].triu()).abs().max()))
-        ms = median_ms(lambda: kernel_fn(
-            *args, None, *cot32, block_size=BLOCK, acc_dtype=torch.float32,
-            need_y=False))
+        sampler = clock_log()
+        try:
+            t0 = time.time()
+            ms = median_ms(lambda: kernel_fn(
+                *args, None, *cot32, block_size=BLOCK,
+                acc_dtype=torch.float32, need_y=False))
+            t1 = time.time()
+        finally:
+            samples = read_clock_log(sampler)
         plain_ms = median_ms(lambda: fused_stats._se_iso_bwd_reference(
             *args, None, *cot32, block_size=BLOCK, acc_dtype=torch.float32,
             need_y=False))
-    log(f"time {BWD_KERNEL}: {ms:.3f} ms vs twin {plain_ms:.3f} ms; max "
-        f"|err| of z_bar and u_inv_bar {max_abs:.3e} ({card})")
+    b = bwd_bound(N, D, M)
+    flops = 1e-3 * b["bound_ms"] * PEAK_FP32  # the bound is by operations
+    props = torch.cuda.get_device_properties(dev)
+    geo = fused_stats._bwd_geometry(N, M, D, props.multi_processor_count,
+                                    props.L2_cache_size)
+    # each tile reads and writes back the hi and lo of a partial of the U^-1
+    # cotangent; a partial's first tile only writes it
+    part_bytes = 2 * 4 * geo.nblk * 64
+    rmw_gb = 1e-9 * part_bytes * (2 * geo.n_tiles - geo.n_parts)
+    log(f"time {BWD_KERNEL}: {ms:.3f} ms (previous kernel {PREV_BWD_MS:.2f} "
+        f"ms: {PREV_BWD_MS / ms:.2f}x) = {flops / ms / 1e9:.2f} TFLOP/s = "
+        f"{100 * b['bound_ms'] / ms:.1f} % of the {b['bound_ms']:.3f} ms "
+        f"bound; {rmw_gb:.2f} GB a step of partial read-modify-write beside "
+        f"it ({geo.n_tiles} tiles, {geo.n_ctas} CTAs, {geo.share} a partial: "
+        f"{1e-6 * part_bytes * geo.n_parts:.1f} MB of partials beside "
+        f"{1e-6 * props.L2_cache_size:.1f} MB of L2); twin {plain_ms:.3f} "
+        f"ms; max |err| of z_bar and u_inv_bar {max_abs:.3e}; "
+        f"{clock_window(samples, t0, t1)} ({card})")
     return {
         "name": BWD_KERNEL, "route": "cuda", "source": BWD_SOURCE,
         "replaces": BWD_REPLACES, "launches": launches[BWD_KERNEL],
-        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-        **bwd_bound(N, D, M), "library_ms": None,
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **b,
+        "library_ms": None,
     }
 
 

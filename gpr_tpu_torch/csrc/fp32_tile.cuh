@@ -1,6 +1,6 @@
-// The register-tiled FP32 product loop shared by csrc/gemm_chain.cu and
-// csrc/se_iso_stats.cu, for Hopper (sm_90a): plain FP32 FMA on the CUDA
-// cores, no TF32, no tensor cores, no fast-math.
+// The register-tiled FP32 product loop shared by csrc/gemm_chain.cu,
+// csrc/se_iso_stats.cu and csrc/se_iso_bwd.cu, for Hopper (sm_90a): plain
+// FP32 FMA on the CUDA cores, no TF32, no tensor cores, no fast-math.
 //
 // A CTA of 8 warps owns a 64-row tile and all 64 G (G <= 6) of its padded
 // columns.  Warp w owns rows 8w..8w+7; lane l owns the columns 128q + 4l ..
@@ -81,9 +81,9 @@ __device__ __forceinline__ void load_w(float* Ws, const float* __restrict__ W, i
   }
 }
 
-// This thread's 8 rows of the k-row Ak and its columns of the W row Wk, from
-// column quad Q0 on.
-template <int G, int Q0 = 0>
+// This thread's 8 rows of the k-row Ak and its columns of the W row Wk, for
+// the column quads Q0 <= q < Q1; the pair of an odd G counts as quad G / 2.
+template <int G, int Q0 = 0, int Q1 = (G + 1) / 2>
 __device__ __forceinline__ void load_frag(float (&a)[kWarpRows], float (&b)[2 * G],
                                           const float* Ak, const float* Wk) {
   constexpr int kQuads = G / 2;
@@ -93,11 +93,11 @@ __device__ __forceinline__ void load_frag(float (&a)[kWarpRows], float (&b)[2 * 
   a[0] = lo.x; a[1] = lo.y; a[2] = lo.z; a[3] = lo.w;
   a[4] = hi.x; a[5] = hi.y; a[6] = hi.z; a[7] = hi.w;
 #pragma unroll
-  for (int q = Q0; q < kQuads; ++q) {
+  for (int q = Q0; q < (Q1 < kQuads ? Q1 : kQuads); ++q) {
     const float4 w = *reinterpret_cast<const float4*>(Wk + 128 * q + 4 * lane);
     b[4 * q] = w.x; b[4 * q + 1] = w.y; b[4 * q + 2] = w.z; b[4 * q + 3] = w.w;
   }
-  if (G % 2) {
+  if (G % 2 && Q1 > kQuads) {
     const float2 w = *reinterpret_cast<const float2*>(Wk + 128 * kQuads + 2 * lane);
     b[4 * kQuads] = w.x;
     b[4 * kQuads + 1] = w.y;
@@ -113,22 +113,24 @@ __device__ __forceinline__ int column(int j) {
 }
 
 // acc += As[0 : kBK] (k-major, this warp's rows) x Ws (this lane's columns),
-// for the accumulators of column quad Q0 on (the others keep their values:
-// a triangular Ws is zero there).
-template <int G, int Q0 = 0>
+// for the accumulators of the column quads Q0 <= q < Q1, the pair of an odd G
+// counting as quad G / 2 (the others keep their values: a triangular Ws is
+// zero there).
+template <int G, int Q0 = 0, int Q1 = (G + 1) / 2>
 __device__ __forceinline__ void mma_slice(float (&acc)[kWarpRows][2 * G], const float* As,
                                           const float* Ws) {
   constexpr int kWidth = kGroup * G;
+  constexpr int kEnd = Q1 > G / 2 ? 2 * G : 4 * Q1;  // accumulators [4 Q0, kEnd)
   float a[2][kWarpRows], b[2][2 * G];
-  load_frag<G, Q0>(a[0], b[0], As, Ws);
+  load_frag<G, Q0, Q1>(a[0], b[0], As, Ws);
 #pragma unroll
   for (int kk = 0; kk < kBK; ++kk) {
     if (kk + 1 < kBK)  // the next k's fragments, while this k's FFMAs issue
-      load_frag<G, Q0>(a[(kk + 1) & 1], b[(kk + 1) & 1], As + (kk + 1) * kAStride,
-                       Ws + (kk + 1) * kWidth);
+      load_frag<G, Q0, Q1>(a[(kk + 1) & 1], b[(kk + 1) & 1], As + (kk + 1) * kAStride,
+                           Ws + (kk + 1) * kWidth);
     // Column-major order: 8 FFMAs in a row share the W operand.
 #pragma unroll
-    for (int j = 4 * Q0; j < 2 * G; ++j)
+    for (int j = 4 * Q0; j < kEnd; ++j)
 #pragma unroll
       for (int i = 0; i < kWarpRows; ++i) acc[i][j] = fmaf(a[kk & 1][i], b[kk & 1][j], acc[i][j]);
   }

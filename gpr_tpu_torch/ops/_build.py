@@ -28,8 +28,9 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 SOURCES = ("se_iso_stats.cu", "se_iso_bwd.cu", "gemm_chain.cu")
-# csrc/fp32_tile.cuh holds the FP32 product loop of gemm_chain.cu and
-# se_iso_stats.cu; every csrc/*.cuh is part of the library's key.
+# csrc/fp32_tile.cuh holds the FP32 product loop of all three sources and
+# csrc/stats_tile.cuh what the two statistics kernels share on it; every
+# csrc/*.cuh is part of the library's key.
 # Plain IEEE f32: no --use_fast_math (the f32 evidence is only as good as the
 # Knm / V entries).  -Xptxas -v writes registers and spills to the build log.
 NVCC_FLAGS = (
@@ -47,11 +48,12 @@ _STATS_ARGTYPES = [
 ]
 _BWD_ARGTYPES = [
     _P, _P, _P, _P,  # X, y, mask (or NULL), z
-    _P, _P, _P, _P,  # u_inv, u_inv_t, ug, ubar
+    _P, _P, _P, _P,  # u_inv, u_inv_t, Gs (tiled route) or UG (wide), ubar
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # n, d, m
     # q, log_sf2, sigma2, lds_bar, yiy_bar, isr_bar
     *[ctypes.c_float] * 6,
     ctypes.c_int, ctypes.c_int,  # n_ctas, tiles_per_cta
+    ctypes.c_int, _P,  # share, turn (or NULL)
     _P, _P, _P, _P, _P,  # ui_part, caug_part, sums_part, y_bar, stream
 ]
 _CHAIN_ARGTYPES = [
@@ -152,8 +154,9 @@ def load_library() -> ctypes.CDLL:
         smem = getattr(lib, f"{prefix}_smem_bytes")
         smem.argtypes = [ctypes.c_int, ctypes.c_int]
         smem.restype = ctypes.c_longlong
-    lib.se_iso_stats_groups.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.se_iso_stats_groups.restype = ctypes.c_int
+        groups = getattr(lib, f"{prefix}_groups")
+        groups.argtypes = [ctypes.c_int, ctypes.c_int]
+        groups.restype = ctypes.c_int
     lib.se_iso_stats_error_string.argtypes = [ctypes.c_int]
     lib.se_iso_stats_error_string.restype = ctypes.c_char_p
     return lib

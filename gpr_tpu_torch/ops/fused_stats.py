@@ -16,12 +16,11 @@ kernel of ``csrc/se_iso_stats.cu`` (f32 compute, built at first use by
 :func:`_se_iso_stats_reference`, in the inputs' own dtype.  There is no
 fallback between the two: a CUDA launch that fails raises.
 
-``block_size`` is the number of rows reduced into one partial: one loop
-block of the twin and, for the backward kernel, one CTA (a multiple of the
-kernel's row tile: 64 rows forward, 32 backward).  The forward kernels take
-their grid from the device instead (:func:`_geometry`: one CTA per SM), and
-only check ``block_size``.  Each wrapper counts its kernel launches in
-``.launches``.
+``block_size`` is the number of rows of one loop block of the twin.  The
+kernels take their grid from the device instead (:func:`_geometry` and
+:func:`_bwd_geometry`: one CTA per SM), and only check that ``block_size``
+is a multiple of their 64-row tile.  Each wrapper counts its kernel
+launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -35,9 +34,9 @@ from ..models.stream_grad import _backward_scan, _forward_scan, _pad_blocks
 from ..numerics.linalg import matmul
 from ._build import load_library
 
-_BLK = 8  # edge of the kernel's Gram register blocks (csrc kBlk)
-# The forward kernels' launch geometry; csrc/se_iso_stats.cu and
-# csrc/fp32_tile.cuh hold the same constants.
+_BLK = 8  # edge of the kernels' m x m register blocks (csrc kBlk)
+# The kernels' launch geometry; csrc/se_iso_stats.cu, csrc/se_iso_bwd.cu,
+# csrc/stats_tile.cuh and csrc/fp32_tile.cuh hold the same constants.
 ROWS = 64  # rows per tile
 GROUP = 64  # columns per group of the tiled route: 2 a lane
 MAX_TILED_M = GROUP * 6 - 1  # G <= 6, and column m (u) in the last group
@@ -46,6 +45,11 @@ RING = 2  # stages of the tiled route's cp.async ring
 A_STRIDE = ROWS + 4  # floats per k-row of the Knm tile
 PANEL = 32  # the wide route's U^-1 panel width
 SMEM_OPTIN = 232_448  # bytes of shared memory a block may opt into (sm_90)
+BWD_MAX_GROUPS = 5  # the backward tiled route: G = 6 never fits
+BWD_WIDE_ROWS = 32  # rows per tile of the backward wide route
+BWD_WIDE_PANEL = 64  # its products' panel width
+L2_BYTES = 50 * 2 ** 20  # the H100's L2
+BWD_MAX_SHARE = 4  # CTAs that take turns on one partial, at most
 
 
 class Geometry(NamedTuple):
@@ -84,6 +88,60 @@ def _geometry(n: int, m: int, d: int, sm_count: int) -> Geometry:
     tiles_per_cta = -(-n_tiles // n_ctas)
     return Geometry(0, False, wide, n_tiles, -(-n_tiles // tiles_per_cta),
                     tiles_per_cta, nblk)
+
+
+class BwdGeometry(NamedTuple):
+    groups: int  # G = ceil(m / 64) of the tiled route; 0: the wide route
+    smem_bytes: int  # dynamic shared memory of one CTA
+    n_tiles: int  # row tiles: 64 rows on the tiled route, 32 on the wide
+    n_ctas: int  # CTAs launched, each with at least one tile
+    tiles_per_cta: int  # the wide route's contiguous chunk
+    nblk: int  # upper 8 x 8 blocks of the m-square U^-1 cotangent
+    share: int  # CTAs that take turns on one partial of that cotangent
+    n_parts: int  # such partials: ceil(n_ctas / share)
+
+
+def _bwd_geometry(n: int, m: int, d: int, sm_count: int,
+                  l2_bytes: int = L2_BYTES) -> BwdGeometry:
+    """The backward kernel's route and launch for n rows, m inducing points
+    and d inputs on a device of ``sm_count`` SMs and ``l2_bytes`` of L2.
+    The tiled route takes G = ceil(m / 64) <= 5 where its shared memory
+    fits (m <= 320 at d = 8): the k-major tile A, the row-major tile R, two
+    ring slices, two x tiles, Z', |z|^2, u-bar, three row vectors and the
+    warp sums.  Its CTAs read and write back their hi/lo partial of the
+    U^-1 cotangent on every tile, so the fewest neighbouring CTAs (1, 2 or
+    4) share one partial that make all partials fit in a quarter of the L2:
+    4 at m = 300 on 132 SMs and 50 MiB (8 measured slower than 1: the CTAs
+    wait for their turns).  The wide route takes every other m, one partial
+    a CTA, and ``smem_bytes`` may then exceed what the device allows (the
+    wrapper raises).  Both launch at most one CTA per SM."""
+    nb8 = -(-m // _BLK)
+    nblk = nb8 * (nb8 + 1) // 2
+    mp = nb8 * _BLK
+    groups = -(-m // GROUP)
+    width = GROUP * groups
+    tiled = 4 * (width * A_STRIDE + ROWS * mp + RING * BK * width
+                 + 2 * d * ROWS + d * width + 2 * width + 3 * ROWS + 16)
+    if groups <= BWD_MAX_GROUPS and tiled <= SMEM_OPTIN:
+        n_tiles = -(-n // ROWS)
+        n_ctas = min(sm_count, n_tiles)
+        part_bytes = 2 * 4 * _BLK * _BLK * nblk
+        share = 1
+        while (share < BWD_MAX_SHARE
+               and -(-n_ctas // share) * part_bytes > l2_bytes // 4):
+            share *= 2
+        return BwdGeometry(groups, tiled, n_tiles, n_ctas,
+                           -(-n_tiles // n_ctas), nblk, share,
+                           -(-n_ctas // share))
+    mk = -(-m // 4) * 4
+    wide = 4 * (3 * BWD_WIDE_ROWS * mp + mk * BWD_WIDE_PANEL + d * mp + 2 * mp
+                + BWD_WIDE_ROWS * d + 4 * BWD_WIDE_ROWS + 16)
+    n_tiles = -(-n // BWD_WIDE_ROWS)
+    # contiguous chunks: every CTA must own a tile
+    tiles_per_cta = -(-n_tiles // min(sm_count, n_tiles))
+    n_ctas = -(-n_tiles // tiles_per_cta)
+    return BwdGeometry(0, wide, n_tiles, n_ctas, tiles_per_cta, nblk, 1,
+                       n_ctas)
 
 
 @torch.no_grad()
@@ -290,22 +348,37 @@ def _launch_bwd(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask, gbar, ubar,
     lib = load_library()
     n, d, m = _validate(X, y, z, u_inv, mask, block_size,
                         lib.se_iso_bwd_rows_per_tile())
-    _check_smem(torch.cuda.get_device_properties(X.device),
-                lib.se_iso_bwd_smem_bytes(m, d), m, d)
-    n_ctas = -(-n // block_size)
-    tiles_per_cta = block_size // lib.se_iso_bwd_rows_per_tile()
+    props = torch.cuda.get_device_properties(X.device)
+    geo = _bwd_geometry(n, m, d, props.multi_processor_count,
+                        props.L2_cache_size)
+    _check_smem(props, geo.smem_bytes, m, d)
     f32, f64 = torch.float32, torch.float64
-    # once per backward, outside the kernel (as the JAX wrapper does):
-    # UG = U^-1 (G-bar + G-bar'), and U^-T row-major for K-bar = V-bar U^-T
-    ug = matmul(u_inv, (gbar + gbar.mT).to(f32)).contiguous()
+    # once per backward, outside the kernel: Gs = G-bar + G-bar', and U^-T
+    # row-major for K-bar = V-bar U^-T.  The tiled route forms VG = V Gs
+    # itself and reads whole rows of both triangles; the wide route takes
+    # UG = U^-1 Gs, as the JAX wrapper does.
+    gsym = (gbar + gbar.mT).to(f32)
+    if geo.groups:
+        u_inv = u_inv.triu()
+        g_mat = gsym.contiguous()
+    else:
+        g_mat = matmul(u_inv, gsym).contiguous()
     u_inv_t = u_inv.mT.contiguous()
     ubar = ubar.to(f32).contiguous()
-    nb8 = -(-m // _BLK)
-    nblk = nb8 * (nb8 + 1) // 2
     dev = X.device
-    ui_part = torch.empty(n_ctas, 2, nblk, _BLK, _BLK, dtype=f32, device=dev)
-    caug_part = torch.empty(n_ctas, 2, m, d + 2, dtype=f32, device=dev)
-    sums_part = torch.empty(n_ctas, 2, 2, dtype=f32, device=dev)
+    if geo.groups:  # float4 v of block b at [v, b]; c'[X | 1 | xx] (d + 2, mp)
+        ui_part = torch.empty(geo.n_parts, 2, _BLK * _BLK // 4, geo.nblk, 4,
+                              dtype=f32, device=dev)
+        caug_part = torch.empty(geo.n_ctas, 2, d + 2, -(-m // _BLK) * _BLK,
+                                dtype=f32, device=dev)
+    else:
+        ui_part = torch.empty(geo.n_parts, 2, geo.nblk, _BLK, _BLK, dtype=f32,
+                              device=dev)
+        caug_part = torch.empty(geo.n_ctas, 2, m, d + 2, dtype=f32, device=dev)
+    sums_part = torch.empty(geo.n_ctas, 2, 2, dtype=f32, device=dev)
+    # the tickets of the CTAs that share a partial start at zero
+    turn = (torch.zeros(geo.n_parts, dtype=torch.int32, device=dev)
+            if geo.share > 1 else None)
     y_bar = torch.empty(n, dtype=f32, device=dev) if need_y else None
     log_ell = torch.as_tensor(log_ell, device=dev).detach().to(f64)
     log_sf2 = torch.as_tensor(log_sf2, device=dev).detach().to(f64)
@@ -317,19 +390,24 @@ def _launch_bwd(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask, gbar, ubar,
             X.data_ptr(), y.data_ptr(),
             None if mask is None else mask.data_ptr(),
             z.data_ptr(), u_inv.data_ptr(), u_inv_t.data_ptr(),
-            ug.data_ptr(), ubar.data_ptr(), n, d, m, *scal,
-            n_ctas, tiles_per_cta, ui_part.data_ptr(), caug_part.data_ptr(),
-            sums_part.data_ptr(),
+            g_mat.data_ptr(), ubar.data_ptr(), n, d, m, *scal,
+            geo.n_ctas, geo.tiles_per_cta, geo.share,
+            None if turn is None else turn.data_ptr(), ui_part.data_ptr(),
+            caug_part.data_ptr(), sums_part.data_ptr(),
             None if y_bar is None else y_bar.data_ptr(), stream,
         )
     _raise_on(lib, err, "se_iso_bwd")
     # fold hi + lo and reduce across CTAs in f64; then the SE-iso pullback
     # of kernels/se_iso.py::k_cross_vjp from c'[X | 1 | xx]
-    ui_bar = _dense_from_blocks(ui_part.to(f64).sum(dim=(0, 1)), nb8,
+    blocks = (_fold_partials(ui_part) if geo.groups
+              else ui_part.sum(dim=(0, 1), dtype=f64))
+    ui_bar = _dense_from_blocks(blocks, -(-m // _BLK),
                                 symmetric=False)[:m, :m].triu()
-    caug = caug_part.to(f64).sum(dim=(0, 1))
+    caug = caug_part.sum(dim=(0, 1), dtype=f64)
+    if geo.groups:  # (d + 2, mp), zero past column m
+        caug = caug[:, :m].mT
     c_x, c_s, c_xx = caug[:, :d], caug[:, d], caug[:, d + 1]
-    rbar_sum, s2_bar = sums_part.to(f64).sum(dim=(0, 1)).unbind()
+    rbar_sum, s2_bar = sums_part.sum(dim=(0, 1), dtype=f64).unbind()
     a = torch.exp(-2.0 * log_ell)
     z64 = z.to(f64)
     c_dot_d2 = (torch.sum(c_xx) + torch.dot(c_s, torch.sum(z64 * z64, dim=1))
@@ -352,14 +430,19 @@ def se_iso_stream_bwd_fused(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
 
     in ``acc_dtype``; ``y_bar`` (n,) is None unless ``need_y``.
 
-    On CUDA every CTA walks its ``block_size`` rows in 32-row tiles,
-    recomputes Knm, V = Knm U^-1 and VG = Knm UG, chains the cotangents and
+    On CUDA one CTA per SM walks row tiles (:func:`_bwd_geometry`: 64 rows
+    on the tiled route, m <= 320 at d = 8; 32 on the wide route), recomputes
+    Knm, V = Knm U^-1 and VG = V (G-bar + G-bar'), chains the cotangents and
     carries two-sum (hi, lo) partials of u_inv_bar, of c'[X | 1 | xx]
     (c = K-bar * Knm, the SE-iso pullback's one reduction) and of the
-    scalars; the wrapper folds and sums them in f64.  ``u_inv`` must be
-    upper triangular, and the kernel returns only the upper triangle of
-    u_inv_bar (zero below): the triangular solve that forms U^-1 reads only
-    that triangle of its cotangent.  The twin returns the full product.
+    scalars; the wrapper folds and sums them in f64.  Where one u_inv_bar
+    partial a CTA would overflow a quarter of the L2, up to 4 neighbouring
+    CTAs take turns on one, in a fixed order, and the launch is
+    cooperative.  ``block_size`` sets the twin's blocks; on CUDA it must be
+    a multiple of 64 and no longer sets the grid.  ``u_inv`` must be upper
+    triangular, and the kernel returns only the upper triangle of u_inv_bar
+    (zero below): the triangular solve that forms U^-1 reads only that
+    triangle of its cotangent.  The twin returns the full product.
     """
     if not X.is_cuda:
         return _se_iso_bwd_reference(

@@ -3,8 +3,9 @@ what each phase and each design choice of its tiled route costs.
 
     python3 -m gpr_tpu_torch.ops.stats_variants
 
-Each variant is ``csrc/se_iso_stats.cu`` with a few exact text edits (an
-edit that no longer applies raises, so the list follows the source): a
+Each variant is ``csrc/se_iso_stats.cu`` and the headers it includes with
+a few exact text edits (each applies once, in one of those files; an edit
+that no longer applies raises, so the list follows the source): a
 phase taken out -- its work skipped on all but a CTA's first tile or
 update, so that the compiler keeps it -- or one design choice undone.  The
 variants compile side by side with the library's nvcc flags, each into a
@@ -21,7 +22,6 @@ the kernel as built).  Needs one CUDA card and nvcc.
 from __future__ import annotations
 
 import ctypes
-import shutil
 import statistics
 import subprocess
 import sys
@@ -36,6 +36,7 @@ from . import _build
 from .fused_stats import _geometry, _partials
 
 N, D, M = 1_000_000, 8, 300
+SOURCE = "se_iso_stats.cu"
 ENTRIES = ("se_iso_stats_acc", "se_iso_stats_partials")
 
 _KNM_SHARED = """    {
@@ -89,33 +90,45 @@ EDITS = {
 }
 
 
-def variant_source(src: str, edits) -> str:
+def read_sources(source: str = SOURCE) -> dict:
+    """{file name: text} of ``source`` and every header of csrc/."""
+    return {p.name: p.read_text()
+            for p in (_build._CSRC / source, *_build._CSRC.glob("*.cuh"))}
+
+
+def variant_sources(srcs: dict, edits) -> dict:
+    """``srcs`` with each (old, new) applied to the one file that holds
+    ``old``, which must occur once in all of them."""
+    srcs = dict(srcs)
     for old, new in edits:
-        if src.count(old) != 1:
+        hits = [name for name, text in srcs.items() if old in text]
+        if len(hits) != 1 or srcs[hits[0]].count(old) != 1:
             raise ValueError(f"edit does not apply once: {old[:70]!r}")
+        src = srcs[hits[0]]
         if new is None:  # the Knm block, start to end
             a = src.index(old)
             b = src.index(_KNM_END, a) + len(_KNM_END)
-            src = src[:a] + _KNM_SHARED + src[b:]
+            srcs[hits[0]] = src[:a] + _KNM_SHARED + src[b:]
         else:
-            src = src.replace(old, new)
-    return src
+            srcs[hits[0]] = src.replace(old, new)
+    return srcs
 
 
-def build(names=tuple(EDITS)) -> dict:
-    """Compile the named variants side by side; {name: CDLL}."""
-    src = (_build._CSRC / "se_iso_stats.cu").read_text()
-    root = _build._BUILD / "variants"
+def build(names=None, *, edits=None, source=SOURCE, entries=ENTRIES,
+          argtypes=_build._STATS_ARGTYPES, subdir="variants") -> dict:
+    """Compile the named variants of ``source`` side by side; {name: CDLL}."""
+    edits = EDITS if edits is None else edits
+    srcs = read_sources(source)
+    root = _build._BUILD / subdir
     nvcc, procs = _build._nvcc(), {}
-    for i, name in enumerate(names):
+    for i, name in enumerate(names or edits):
         d = root / str(i)
         d.mkdir(parents=True, exist_ok=True)
-        (d / "se_iso_stats.cu").write_text(variant_source(src, EDITS[name]))
-        for header in _build._CSRC.glob("*.cuh"):
-            shutil.copy(header, d / header.name)
+        for fname, text in variant_sources(srcs, edits[name]).items():
+            (d / fname).write_text(text)
         procs[name] = (d, subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-             str(d / "se_iso_stats.cu")],
+             str(d / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (d, proc) in procs.items():
@@ -123,16 +136,16 @@ def build(names=tuple(EDITS)) -> dict:
         if proc.returncode:
             raise RuntimeError(f"variant {name!r}: nvcc failed:\n{out}")
         lib = ctypes.CDLL(str(d / "lib.so"))
-        for entry in ENTRIES:
-            getattr(lib, entry).argtypes = _build._STATS_ARGTYPES
+        for entry in entries:
+            getattr(lib, entry).argtypes = argtypes
             getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
-def serving_inputs(dev):
-    """bench.py's draw and model at the serving shape, as the kernel
-    takes them: X, y, z, triu(U^-1) and the scalars q, log_sf2, sigma2."""
+def bench_draw(dev):
+    """bench.py's draw and model at chip_smoke.py's shape, as the kernels
+    take them: X, y, z, triu(U^-1) and the scalars q, log_sf2, sigma2."""
     rng = np.random.default_rng(0)
     X = rng.standard_normal((N, D)).astype(np.float32)
     y = rng.standard_normal(N).astype(np.float32)
@@ -179,30 +192,39 @@ def event_ms(fn, reps):
     return times
 
 
-def main() -> int:
+def card_name() -> str:
     if not torch.cuda.is_available():
-        raise RuntimeError("stats_variants runs on a CUDA card only")
-    card = subprocess.run(
+        raise RuntimeError("the kernel variants run on a CUDA card only")
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda", 0)
-    libs = build()
-    inputs = serving_inputs(dev)
-    runs = {(name, entry): launcher(lib, entry, inputs, dev)
-            for name, lib in libs.items() for entry in ENTRIES}
+
+
+def time_variants(runs: dict, card: str) -> None:
+    """Time ``runs`` ({(variant, entry): launch}) in turns, forward then
+    reversed, and print one line each beside the entry as built."""
     times = {key: [] for key in runs}
     for order in (list(runs), list(runs)[::-1]):
         for key in order:
             times[key] += event_ms(runs[key], 7)
     base = {entry: statistics.median(times["as built", entry])
-            for entry in ENTRIES}
+            for _, entry in runs}
     for (name, entry), ts in times.items():
         ms = statistics.median(ts)
         print(f"variant {name:24s} {entry:22s} {ms:8.3f} ms "
               f"({ms - base[entry]:+.3f} vs as built; min {min(ts):.3f}, "
               f"max {max(ts):.3f}; CUDA events, median of {len(ts)}; {card})",
               flush=True)
+
+
+def main() -> int:
+    card = card_name()
+    dev = torch.device("cuda", 0)
+    libs = build()
+    inputs = bench_draw(dev)
+    time_variants({(name, entry): launcher(lib, entry, inputs, dev)
+                   for name, lib in libs.items() for entry in ENTRIES}, card)
     return 0
 
 

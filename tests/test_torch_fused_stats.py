@@ -193,6 +193,89 @@ def test_cuda_kernel_matches_twin(rng, cuda_device, wrapper, n, masked, m):
         assert err <= (1e-4 if o.ndim else 1e-5), (name, err)
 
 
+def test_vg_from_v_is_the_twins_vg(rng):
+    """The identity the backward kernel's tiled route rests on: VG = Knm
+    (U^-1 Gs) = (Knm U^-1) Gs = V Gs with Gs = G-bar + G-bar', so the kernel
+    forms VG from V and the wrapper need not form U^-1 Gs.  In f64 the two
+    orders agree to 1e-10."""
+    from gpr_tpu_torch.numerics.linalg import matmul
+
+    X, y, Z, _ = _setup(rng, n=256, d=3, m=37)
+    kernel, _, args = _torch_args(X, y, Z, None, torch.float64)
+    u_inv, x_t = args[3], args[5]
+    gbar = torch.as_tensor(rng.standard_normal((37, 37)))
+    gsym = gbar + gbar.T
+    with torch.no_grad():
+        knm = kernel.k_cross(x_t, args[2])
+        left = matmul(matmul(knm, u_inv), gsym).numpy()
+        right = matmul(knm, matmul(u_inv, gsym)).numpy()
+    np.testing.assert_allclose(left, right, rtol=1e-10,
+                               atol=1e-10 * np.abs(right).max())
+
+
+def _bwd_case(rng, cuda_device, n, m, masked, d=8):
+    """Kernel inputs on the card (f32), their f64 copies, and seeded
+    cotangents of the evidence's magnitudes."""
+    X, y, Z, mask = _setup(rng, n=n, d=d, m=m, masked=masked)
+    f32 = np.float32
+    _, _, args = _torch_args(X.astype(f32), y.astype(f32), Z.astype(f32),
+                             mask, torch.float32)
+    dev = [None if a is None else a.to(cuda_device).contiguous()
+           for a in args]
+    cot = [torch.as_tensor(c, dtype=torch.float32, device=cuda_device)
+           for c in (1e-3 * rng.standard_normal((m, m)),
+                     1e-2 * rng.standard_normal(m), -0.5, -0.4, -0.3)]
+    as64 = lambda ts: [None if t is None else t.double() for t in ts]  # noqa: E731
+    return dev, cot, as64(dev), as64(cot)
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_kernel_matches_twin(rng, cuda_device):
+    """The f32 backward kernel against the f64 twin on the same (f32)
+    inputs: the tiled route at G = 1, 2, 3 and 5 column groups (m = 320 its
+    last), the wide route at m = 336 (its last at d = 8), with and without a
+    mask and y_bar; m = 400 fits neither route and raises."""
+    fn = tops.se_iso_stream_bwd_fused
+    for n, masked, m, need_y in [(4096, 0, 64, True), (1000, 37, 65, True),
+                                 (4096, 100, 129, False),
+                                 (4096, 0, 300, True), (1000, 37, 320, True),
+                                 (4096, 0, 336, True)]:
+        dev, cot, ref, cot64 = _bwd_case(rng, cuda_device, n, m, masked)
+        before = fn.launches
+        out = fn(*dev, *cot, block_size=1024, acc_dtype=torch.float64,
+                 need_y=need_y)
+        assert fn.launches == before + 1
+        want = tops._se_iso_bwd_reference(
+            *ref, *cot64, block_size=1024, acc_dtype=torch.float64,
+            need_y=need_y)
+        assert (out[-1] is None) == (not need_y)
+        for i, (o, w) in enumerate(zip(out, want)):
+            if o is None:
+                continue
+            if i == 3:  # the kernel keeps the upper triangle only
+                o, w = o.triu(), w.triu()
+            err = float(torch.linalg.norm(o - w) / torch.linalg.norm(w))
+            assert err <= 1e-4, (m, i, err)
+    dev, cot, _, _ = _bwd_case(rng, cuda_device, 256, 400, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        fn(*dev, *cot, block_size=1024)
+
+
+@pytest.mark.cuda
+def test_cuda_block_size_must_be_a_multiple_of_64(rng, cuda_device):
+    """On CUDA tensors ``block_size`` no longer sets the grid, but every
+    wrapper still holds it to a multiple of the kernels' 64-row tile."""
+    dev, cot, _, _ = _bwd_case(rng, cuda_device, 256, 37, 0)
+    for bad in (32, 96, 100, 0):
+        with pytest.raises(ValueError, match="multiple of 64"):
+            tops.se_iso_stream_bwd_fused(*dev, *cot, block_size=bad)
+        for name in WRAPPERS:
+            with pytest.raises(ValueError, match="multiple of 64"):
+                getattr(tops, name)(*dev, block_size=bad)
+    assert tops.se_iso_stream_bwd_fused(*dev, *cot, block_size=64)[2].shape \
+        == (37, 8)
+
+
 def test_build_is_keyed_by_sources_and_failure_raises(tmp_path, monkeypatch):
     """An edited source, or an edited header it includes, gets a new
     library; a failed build raises with the compiler's output, and nothing

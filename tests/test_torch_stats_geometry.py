@@ -1,9 +1,11 @@
-"""Launch geometry of the forward-statistics kernels (ops/fused_stats.py).
+"""Launch geometry of the statistics kernels, forward and backward
+(ops/fused_stats.py).
 
 The kernels themselves run only on the card (chip_smoke.py holds
-``_geometry``'s shared memory and route equal to the library's for every m
-in 1..400); here the route, the padded column groups, the shared memory,
-the grid and the partials the wrapper allocates are checked on the CPU.
+``_geometry``'s and ``_bwd_geometry``'s shared memory and route equal to
+the library's for every m in 1..400); here the route, the padded column
+groups, the shared memory, the grid and the partials the wrapper allocates
+are checked on the CPU.
 """
 
 import numpy as np
@@ -11,7 +13,11 @@ import pytest
 import torch
 
 from gpr_tpu_torch.ops import fused_stats as tops
-from gpr_tpu_torch.ops.fused_stats import SMEM_OPTIN, _geometry
+from gpr_tpu_torch.ops.fused_stats import (
+    SMEM_OPTIN,
+    _bwd_geometry,
+    _geometry,
+)
 
 
 def _tiled_bytes(m, d):
@@ -123,15 +129,148 @@ def test_partials_unpack_to_the_gram_and_u(comp):
                                    atol=1e-12 * np.abs(full).max())
 
 
-def test_every_kernel_variant_edit_applies():
-    """ops/stats_variants.py measures each phase and design choice of the
-    tiled kernel by exact edits of csrc/se_iso_stats.cu: each must apply
-    once to the source as it stands, and change it."""
-    from gpr_tpu_torch.ops import _build, stats_variants
+def _bwd_tiled_bytes(m, d):
+    """The k-major tile A, the row-major tile R, two ring slices, two x
+    tiles, Z^T, |z|^2 and u-bar, three row vectors and the warp sums."""
+    w = 64 * -(-m // 64)
+    mp = 8 * -(-m // 8)
+    return 4 * (w * 68 + 64 * mp + 2 * 16 * w + 2 * 64 * d + d * w + 2 * w
+                + 3 * 64 + 16)
 
-    src = (_build._CSRC / "se_iso_stats.cu").read_text()
-    for name, edits in stats_variants.EDITS.items():
-        out = stats_variants.variant_source(src, edits)
-        assert (out == src) == (name == "as built"), name
-    with pytest.raises(ValueError):
-        stats_variants.variant_source(src, [("no such text", "")])
+
+def _bwd_wide_bytes(m, d):
+    """Three 32-row tiles, a 64-column panel, Z^T, |z|^2 and u-bar, the x
+    tile, four row vectors and the warp sums."""
+    mp = 8 * -(-m // 8)
+    mk = 4 * -(-m // 4)
+    return 4 * (3 * 32 * mp + mk * 64 + d * mp + 2 * mp + 32 * d + 4 * 32 + 16)
+
+
+@pytest.mark.parametrize("d", [1, 3, 8, 20, 48])
+def test_bwd_route_and_grid_for_every_m(d):
+    """The backward tiled route takes G = ceil(m / 64) <= 5 column groups
+    where its two tiles, ring and vectors fit in the 232,448 bytes a block
+    may opt into; every other m takes the wide route.  At d <= 8 the switch
+    is at m = 321; a wider x tile and Z^T move it down.  Both routes launch
+    min(SMs, tiles) CTAs or fewer, each with a tile."""
+    routes = []
+    for m in range(1, 401):
+        geo = _bwd_geometry(1_000_000, m, d, 132)
+        tiled = _bwd_tiled_bytes(m, d)
+        assert geo.nblk == -(-m // 8) * (-(-m // 8) + 1) // 2
+        if -(-m // 64) <= 5 and tiled <= SMEM_OPTIN:
+            assert geo.groups == -(-m // 64), (m, d)
+            assert geo.smem_bytes == tiled <= SMEM_OPTIN
+            assert geo.n_tiles == 15_625 and geo.n_ctas == 132
+            # the fewest CTAs a partial (1, 2 or 4) that keep all hi/lo
+            # partials of the triangle within a quarter of the 50 MiB L2
+            part = 2 * 4 * 64 * geo.nblk
+            assert geo.share in (1, 2, 4)
+            assert geo.n_parts == -(-132 // geo.share)
+            assert geo.share == 4 or geo.n_parts * part <= 50 * 2 ** 20 // 4
+            assert geo.share == 1 or (-(-132 // (geo.share // 2)) * part
+                                      > 50 * 2 ** 20 // 4)
+        else:
+            assert geo.groups == 0, (m, d)
+            assert geo.smem_bytes == _bwd_wide_bytes(m, d)
+            assert geo.n_tiles == 31_250
+            tpc = geo.tiles_per_cta
+            assert (geo.n_ctas - 1) * tpc < geo.n_tiles <= geo.n_ctas * tpc
+            assert geo.n_ctas <= 132
+            assert (geo.share, geo.n_parts) == (1, geo.n_ctas)
+        routes.append(geo.groups > 0)
+    first_wide = routes.index(False) + 1
+    assert first_wide == {1: 321, 3: 321, 8: 321, 20: 257, 48: 209}[d]
+    assert not any(routes[first_wide - 1:])
+    for n in (1, 64, 65, 8191, 100_003):
+        for sms in (1, 114, 132):
+            for m in (37, 300, 336):
+                geo = _bwd_geometry(n, m, d, sms)
+                rows = 64 if geo.groups else 32
+                assert geo.n_tiles == -(-n // rows)
+                assert 1 <= geo.n_ctas <= min(sms, geo.n_tiles)
+                assert geo.n_parts == -(-geo.n_ctas // geo.share)
+                if geo.groups:
+                    assert geo.n_ctas == min(sms, geo.n_tiles)
+                else:
+                    tpc = geo.tiles_per_cta
+                    assert (geo.n_ctas - 1) * tpc < geo.n_tiles
+    # a smaller L2 shares sooner; a device without partials to spare, never
+    assert _bwd_geometry(1_000_000, 129, d, 132).share == 1
+    assert _bwd_geometry(1_000_000, 129, d, 132, 2 ** 20).share == 4
+    assert _bwd_geometry(64, 300, 1, 132).share == 1
+
+
+def test_bwd_shared_memory_at_the_bench_shape():
+    """m = 300, d = 8: G = 5, 320 padded columns; A k-major (87,040 B), R
+    row-major (77,824 B), two ring slices (40,960 B), two x tiles (4,096 B),
+    Z^T (10,240 B), |z|^2 and u-bar (2,560 B), three row vectors and the
+    warp sums (832 B): 223,552 bytes, one CTA per SM.  One hi/lo partial of
+    the triangle a CTA would be 50 MB, so 4 CTAs take turns on each of 33
+    (12.5 MB).  m = 320 is the last tiled m, m = 336 the last the wide
+    route's three tiles fit for."""
+    geo = _bwd_geometry(1_000_000, 300, 8, 132)
+    assert (geo.groups, geo.smem_bytes, geo.n_ctas) == (5, 223_552, 132)
+    assert (geo.nblk, geo.share, geo.n_parts) == (741, 4, 33)
+    assert 132 * 2 * 4 * 64 * 741 == 50_079_744
+    assert (87_040 + 77_824 + 40_960 + 4_096 + 10_240 + 2_560 + 832
+            == 223_552)
+    assert _bwd_geometry(1_000_000, 320, 8, 132)[:2] == (5, 227_648)
+    wide = _bwd_geometry(1_000_000, 336, 8, 132)
+    assert (wide.groups, wide.smem_bytes) == (0, 230_080)
+    assert wide.smem_bytes <= SMEM_OPTIN
+    assert _bwd_geometry(1_000_000, 337, 8, 132).smem_bytes > SMEM_OPTIN
+    assert _bwd_geometry(1_000_000, 400, 8, 132).smem_bytes > SMEM_OPTIN
+
+
+def test_bwd_triangle_partial_unpacks_to_upper_blocks():
+    """The tiled route's partial of the U^-1 cotangent, (n_ctas, 2, 16,
+    nblk, 4) with float4 v of block b at [v, b], filled with the upper 8 x 8
+    blocks of a known Knm' V-bar split over CTAs and hi/lo halves, folds and
+    unpacks to that matrix with zero blocks below the diagonal."""
+    rng = np.random.default_rng(1)
+    for m in (1, 8, 37, 64, 65, 300, 320):
+        geo = _bwd_geometry(10_000, m, 8, 3)
+        assert geo.n_parts == geo.n_ctas == 3
+        nb8 = -(-m // 8)
+        s_mat = rng.standard_normal((64, m))
+        t_mat = rng.standard_normal((64, m))
+        full = np.zeros((8 * nb8, 8 * nb8))
+        full[:m, :m] = s_mat.T @ t_mat
+        blocks = np.stack([full[8 * i:8 * i + 8, 8 * j:8 * j + 8]
+                           for i in range(nb8) for j in range(i, nb8)])
+        assert blocks.shape[0] == geo.nblk
+        written = blocks.reshape(geo.nblk, 16, 4).transpose(1, 0, 2)
+        shares = rng.dirichlet(np.ones(geo.n_parts * 2))
+        parts = shares.reshape(geo.n_parts, 2, 1, 1, 1) * written
+        dense = tops._dense_from_blocks(
+            tops._fold_partials(torch.as_tensor(parts)), nb8, symmetric=False)
+        want = full.copy()
+        for i in range(nb8):  # blocks below the diagonal are not kept
+            want[8 * i:8 * i + 8, :8 * i] = 0.0
+        np.testing.assert_allclose(dense.numpy(), want, rtol=1e-12,
+                                   atol=1e-12 * np.abs(full).max())
+        np.testing.assert_allclose(np.triu(dense.numpy()[:m, :m]),
+                                   np.triu(full[:m, :m]), rtol=1e-12,
+                                   atol=1e-12 * np.abs(full).max())
+
+
+def test_every_kernel_variant_edit_applies():
+    """ops/stats_variants.py and ops/bwd_variants.py measure each phase and
+    design choice of the tiled kernels by exact edits of csrc/se_iso_stats.cu,
+    csrc/se_iso_bwd.cu and the headers they include: each must apply once,
+    to one of those files as they stand, and change it."""
+    from gpr_tpu_torch.ops import bwd_variants, stats_variants
+
+    for mod in (stats_variants, bwd_variants):
+        srcs = stats_variants.read_sources(mod.SOURCE)
+        assert set(srcs) >= {mod.SOURCE, "fp32_tile.cuh", "stats_tile.cuh"}
+        for name, edits in mod.EDITS.items():
+            out = stats_variants.variant_sources(srcs, edits)
+            assert (out == srcs) == (name == "as built"), (mod.SOURCE, name)
+        with pytest.raises(ValueError):
+            stats_variants.variant_sources(srcs, [("no such text", "")])
+    # the backward list covers what it is meant to measure
+    assert {"no V product", "no VG product", "no Kb product",
+            "no triangle update", "no write-back", "no Knm recomputes",
+            "no triangle skip"} <= set(bwd_variants.EDITS)
