@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive gpr_tpu_torch's streaming serving and training paths once on one
-NVIDIA GPU.
+"""Drive gpr_tpu_torch's streaming serving and training paths, and the
+README's Quick-start path, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -83,9 +83,33 @@ Phases, each printed on its own line:
    1e-3).  Both statistics kernels launched, every
    probe and rescored value finite, the winner's mean NLL below its start,
    the polish's gradient norm below its start.
+10. quickstart -- the README's Quick-start path at bench.py's draw (f32,
+   block 8,192, the fit phase's targets): (a) ``optim.train`` from log_ell
+   0.5, sigma2 1.0, variational, max_iter 10, epsabs 1e-6, through both
+   statistics kernels (launched), with at least one accepted iteration,
+   finite gradient norms and an evidence no lower than at the start; the
+   cost of the host round trip of one evaluation; the same run stopped by
+   a Bailout after iteration 5 with a checkpoint and resumed, whose final
+   hypers must equal the uninterrupted run's (bit-equal expected; fails
+   above 1e-6 relative).  (b) Serving from its result: the nine
+   ``calc_stats`` metrics finite with SMSE below 1; ``predict_means`` over
+   the 1M rows and ``predict_means_blocked`` each within 1e-5 of the f64
+   twin relative to |Knm| |coeffs| (``means_errors``);
+   ``predict_variances`` within 1e-4 of ``predict_variances_blocked`` and
+   positive; at 2,048 points the diagonals of ``covariances_fic`` and
+   ``covariances_fitc`` within 1e-4 of the variances; ``cov_sample`` (512
+   draws) and ``sample_fic_blocked`` (1M points x 4 draws) finite; 4,096
+   FIC draws at 2,048 points whose mean variance is within 5 % of the
+   predicted one.  (c) On the first 20,000 rows: ``fit(objective="loo")``
+   (max_iter 10, epsabs 1e-4) raises the LOO pseudo-likelihood;
+   ``train_sgd`` and ``train_smd`` (5 steps, eta0 1e-5, each timed twice:
+   the first call pays torch.func's set-up) end finite at no less than
+   the start evidence; ``choose_n_random_inputs`` picks 300 distinct rows of X and
+   ``choose_kmeans_inputs`` (100,000-row subsample, 10 iterations) finite
+   centroids.
 Timings: median of 5 after a warm-up, host clock around synchronised
 calls, or CUDA events where named (the chain and its torch.matmul
-yardstick: median of 10, in two turns each).
+yardstick: median of 10, in two turns each); one run for the trainers.
 
 The line before the last is a JSON object of the kernels (each with its
 bound: the larger of its flops at the 67 TFLOP/s FP32 peak and its bytes,
@@ -101,6 +125,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from datetime import datetime
 
@@ -119,7 +144,33 @@ from gpr_tpu_torch.ops.gemm_chain import (
     _geometry,
     gemm_chain,
 )
-from gpr_tpu_torch.optim import fit, fit_restarts, make_pack, polish
+from gpr_tpu_torch.models import (
+    calc_stats,
+    choose_kmeans_inputs,
+    choose_n_random_inputs,
+    co_variance_predictor,
+    cov_sample,
+    cov_sampler,
+    covariances_fic,
+    covariances_fitc,
+    log_evidence,
+    loo_objective_fitc,
+    mean_predictor,
+    predict_means,
+    predict_variances,
+    sample_fic_blocked,
+)
+from gpr_tpu_torch.optim import (
+    Bailout,
+    fit,
+    fit_restarts,
+    make_objective,
+    make_pack,
+    polish,
+    train,
+    train_sgd,
+    train_smd,
+)
 
 N, D, M = 1_000_000, 8, 300
 LOG_ELL, LOG_SF2, SIGMA2, JITTER = 0.5, 0.0, 0.1, 1e-6
@@ -968,6 +1019,297 @@ def restarts_phase(dev, card: str, data) -> None:
                              f"{prep.gnorm})")
 
 
+def rel_norm(got, want) -> float:
+    """Relative 2-norm error, in f64."""
+    return float(torch.linalg.norm(got.double() - want.double())
+                 / torch.linalg.norm(want.double()))
+
+
+def check(tag: str, ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(f"{tag}: {what}")
+
+
+def quickstart_train(dev, card, X32, yf, z) -> object:
+    """(a) The README's ``train`` at bench's shape, uninterrupted, then
+    stopped by a Bailout after iteration 5 and resumed from its checkpoint.
+    Returns the uninterrupted result."""
+    def run(**kw):
+        return train(SeIso, X32, yf,
+                     kernel_params=SeIso(LOG_ELL, LOG_SF2, device=dev,
+                                         dtype=torch.float32),
+                     inducing=z, sigma2=1.0, variational=True,
+                     block_size=BLOCK, max_iter=10, epsabs=1e-6, **kw)
+
+    norms = []
+    t0 = time.perf_counter()
+    result, launches = counted(
+        "quickstart train",
+        lambda: run(report_gradient_norm=lambda iter, norm: norms.append(
+            norm)),
+        ("se_iso_stream_stats_fused_acc", BWD_KERNEL))
+    secs = time.perf_counter() - t0
+    # one backward launch an evaluation; the forward one more, for the
+    # trained state reported at the end
+    evals, iters = launches[BWD_KERNEL], len(norms) - 1
+    with torch.no_grad():
+        l0 = float(streaming.streaming_log_evidence(
+            SeIso(LOG_ELL, LOG_SF2, device=dev, dtype=torch.float32), z,
+            torch.tensor(1.0, device=dev), X32, yf, variational=True,
+            block_size=BLOCK))
+    l = float(result.l)
+    log(f"quickstart train: {iters} iterations, {evals} evaluations, "
+        f"{secs:.2f} s = {1e3 * secs / evals:.1f} ms per evaluation "
+        f"(reporting included); evidence {l0:.3f} -> {l:.3f}; |g| "
+        f"{norms[0]:.4e} -> {norms[-1]:.4e} (epsabs 1e-6: "
+        f"{'met' if norms[-1] < 1e-6 else 'not met'}); sigma2 "
+        f"{float(result.sigma2):.5f} ({card})")
+    check("quickstart train", iters >= 1, "no accepted iteration")
+    check("quickstart train", all(np.isfinite(norms)), f"gradient norms "
+          f"{norms}")
+    check("quickstart train", np.isfinite(l) and l >= l0, f"evidence "
+          f"{l0} -> {l}")
+
+    # the host round trip of one evaluation: x to the card, (f, g) back
+    pack = make_pack(SeIso(LOG_ELL, LOG_SF2, device=dev,
+                           dtype=torch.float32), z, 1.0)
+    fg, _ = make_objective(X32, yf, pack, variational=True,
+                           block_size=BLOCK)
+    x_host = pack.x0.cpu().numpy().astype(np.float64)
+    on_card = median_ms(lambda: fg(pack.x0))
+
+    def round_trip():
+        f, g = fg(torch.as_tensor(x_host, dtype=torch.float32, device=dev))
+        return float(f), g.cpu().numpy().astype(np.float64)
+
+    via_host = median_ms(round_trip)
+    log(f"time quickstart evaluation: {on_card:.3f} ms on the card's "
+        f"tensors, {via_host:.3f} ms through the host's f64 numpy "
+        f"({via_host - on_card:+.3f} ms the round trip; {x_host.size} "
+        f"hypers) ({card})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/train.npz"
+
+        def bail(iter, norm):
+            if iter >= 5:
+                raise Bailout
+
+        t0 = time.perf_counter()
+        partial = run(checkpoint_path=ckpt, report_gradient_norm=bail)
+        t1 = time.perf_counter()
+        resumed = run(checkpoint_path=ckpt, resume=True)
+        t2 = time.perf_counter()
+    got = torch.cat([resumed.kernel_params.log_ell.reshape(1),
+                     resumed.kernel_params.log_sf2.reshape(1),
+                     resumed.inducing.reshape(-1),
+                     resumed.sigma2.reshape(1)])
+    want = torch.cat([result.kernel_params.log_ell.reshape(1),
+                      result.kernel_params.log_sf2.reshape(1),
+                      result.inducing.reshape(-1),
+                      result.sigma2.reshape(1)])
+    equal = bool(torch.equal(got, want))
+    rel = rel_norm(got, want)
+    log(f"quickstart resume: bailed at iteration 5 with evidence "
+        f"{float(partial.l):.3f} ({t1 - t0:.2f} s), resumed to "
+        f"{float(resumed.l):.3f} ({t2 - t1:.2f} s); final hypers "
+        f"{'bit-equal to' if equal else f'rel {rel:.3e} from'} the "
+        f"uninterrupted run's ({card})")
+    check("quickstart resume", rel <= 1e-6, f"hypers off by rel {rel:.3e}")
+    return result
+
+
+def means_errors(kernel, mp, X32, **means) -> tuple[dict, float]:
+    """Each f32 mean vector's error against the f64 twin of the same model
+    (its hypers, z and coeffs in f64), relative to the 2-norm of |Knm|
+    |coeffs|: the size of the terms each mean sums.  Summing m terms in
+    f32 errs by up to m u of that (u = 2^-24); the means themselves are
+    smaller by the condition kappa = || |Knm| |coeffs| || / ||Knm coeffs||,
+    which a broad kernel with cancelling coefficients makes large, and
+    then their plain relative error is up to kappa times larger.  Returns
+    (errors, kappa)."""
+    k64 = SeIso.of(kernel.log_ell.double(), kernel.log_sf2.double())
+    z64, c64 = mp.z.double(), mp.coeffs.double()
+    want = torch.empty(N, dtype=torch.float64, device=X32.device)
+    scale = torch.empty_like(want)
+    for i in range(0, N, 65_536):
+        knm = k64.k_cross(X32[i:i + 65_536].double(), z64)
+        want[i:i + 65_536] = knm @ c64
+        scale[i:i + 65_536] = knm.abs() @ c64.abs()
+    norm = float(torch.linalg.norm(scale))
+    errs = {name: float(torch.linalg.norm(got.double() - want)) / norm
+            for name, got in means.items()}
+    return errs, norm / float(torch.linalg.norm(want))
+
+
+def quickstart_serve(dev, card, X32, result) -> None:
+    """(b) Serving from the trained result: stats, predictors, covariances
+    and samplers.
+
+    The moment check: 4,096 FIC draws at 2,048 points.  Each point's
+    sample variance has relative standard error sqrt(2 / 4,095) = 2.2 %;
+    the mean over the points has at most that (points whose draws are
+    fully correlated) and less as the independent diagonal term takes
+    over, so a 5 % bound is over 2.2 standard errors in the worst case."""
+    kernel, sigma2 = result.kernel_params, result.sigma2
+    gen = torch.Generator(device=dev).manual_seed(6)
+    sub = X32[:2048]
+    with torch.no_grad():
+        st = calc_stats(result.trained)
+        metrics = {f: float(getattr(st, f)) for f in (
+            "target_variance", "sse", "mse", "rmse", "smse", "msll", "mad",
+            "maxad")}
+        log("quickstart stats: n " + str(st.n_samples) + ", " + ", ".join(
+            f"{k} {v:.6g}" for k, v in metrics.items()))
+        check("quickstart stats", all(np.isfinite(v) for v in
+                                      metrics.values())
+              and metrics["smse"] < 1.0, f"{metrics}")
+
+        mp = mean_predictor(result.trained)
+        cvp = co_variance_predictor(result.model)
+        means = predict_means(kernel, mp, X32)
+        means_b = streaming.predict_means_blocked(kernel, mp.z, mp.coeffs,
+                                                  X32, block_size=65_536)
+        m_rel = rel_norm(means, means_b)
+        m_errs, kappa = means_errors(kernel, mp, X32, predict_means=means,
+                                     predict_means_blocked=means_b)
+        var = predict_variances(kernel, cvp, X32, sigma2)
+        var_b = streaming.predict_variances_blocked(
+            kernel, cvp.z, cvp.chol_km, cvp.r_mat, X32, sigma2,
+            block_size=65_536)
+        v_rel = rel_norm(var, var_b)
+        log(f"quickstart predict: means rel {m_rel:.2e} vs blocked; vs the "
+            f"f64 twin, relative to |Knm| |coeffs| (bound 1e-5): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in m_errs.items())
+            + f"; condition |Knm| |coeffs| / |means| {kappa:.3e}; variances "
+            f"rel {v_rel:.2e} vs blocked (bound 1e-4), min variance "
+            f"{float(var.min()):.4e}")
+        check("quickstart predict", max(m_errs.values()) <= 1e-5,
+              f"means {m_errs}")
+        check("quickstart predict", v_rel <= 1e-4 and bool(
+            (var > 0).all()), f"variances rel {v_rel}, min {var.min()}")
+
+        cov_fic = covariances_fic(kernel, cvp, sub, sigma2)
+        cov_fitc = covariances_fitc(kernel, cvp, sub, sigma2,
+                                    predictive=False)
+        errs = {"fic": rel_norm(torch.diagonal(cov_fic), var[:2048]),
+                "fitc": rel_norm(torch.diagonal(cov_fitc) + sigma2,
+                                 var[:2048])}
+        log(f"quickstart covariances at 2,048 points: diagonal rel "
+            f"{errs['fic']:.2e} (fic), {errs['fitc']:.2e} (fitc) vs the "
+            f"variances (bound 1e-4)")
+        check("quickstart covariances", max(errs.values()) <= 1e-4, errs)
+
+        cs = cov_sampler(means[:2048], cov_fitc, sigma2)
+        draws = cov_sample(gen, cs, 512)
+        check("quickstart cov_sample", tuple(draws.shape) == (2048, 512)
+              and bool(torch.isfinite(draws).all()), "draws")
+        big = sample_fic_blocked(gen, kernel, cvp, X32, sigma2, 4)
+        check("quickstart sample_fic_blocked", tuple(big.shape) == (N, 4)
+              and bool(torch.isfinite(big).all()), "1M draws")
+        many = sample_fic_blocked(gen, kernel, cvp, sub, sigma2, 4096)
+        emp, pred = float(many.var(dim=1).mean()), float(var[:2048].mean())
+        log(f"quickstart samples: cov_sample 2,048 x 512 finite; FIC 1M x 4 "
+            f"finite; FIC 2,048 x 4,096: mean variance {emp:.5f} vs "
+            f"predicted {pred:.5f} ({100 * (emp / pred - 1):+.2f} %, bound "
+            f"5 %)")
+        check("quickstart samples", abs(emp / pred - 1.0) <= 0.05,
+              f"{emp} vs {pred}")
+
+        times = {
+            "calc_stats": median_ms(lambda: calc_stats(result.trained)),
+            "predict_means 1M": median_ms(lambda: predict_means(kernel, mp,
+                                                                X32)),
+            "predict_variances 1M": median_ms(lambda: predict_variances(
+                kernel, cvp, X32, sigma2)),
+            "covariances_fitc 2,048": median_ms(lambda: covariances_fitc(
+                kernel, cvp, sub, sigma2)),
+            "cov_sampler + cov_sample 2,048 x 512": median_ms(
+                lambda: cov_sample(gen, cov_sampler(means[:2048], cov_fitc,
+                                                    sigma2), 512)),
+            "sample_fic_blocked 1M x 4": median_ms(lambda: sample_fic_blocked(
+                gen, kernel, cvp, X32, sigma2, 4)),
+        }
+    log("time quickstart serving: " + "; ".join(
+        f"{k} {v:.3f} ms" for k, v in times.items()) + f" ({card})")
+
+
+def quickstart_dense(dev, card, X32, yf, z) -> None:
+    """(c) The dense legs on the first 20,000 rows, as the rescoring
+    takes, and the choosers over all rows."""
+    X20, y20 = X32[:20_000], yf[:20_000]
+
+    def start():
+        return dict(kernel_params=SeIso(LOG_ELL, LOG_SF2, device=dev,
+                                        dtype=torch.float32),
+                    inducing=z, sigma2=1.0)
+
+    pack = make_pack(start()["kernel_params"], z, 1.0)
+
+    def loo(x):
+        with torch.no_grad():
+            return float(loo_objective_fitc(*pack.unpack(x), X20, y20))
+
+    t0 = time.perf_counter()
+    *_, st = fit(X20, y20, pack, objective="loo", max_iter=10, epsabs=1e-4)
+    secs = time.perf_counter() - t0
+    loo0, loo1 = loo(pack.x0), loo(st.x)
+    log(f"quickstart fit loo (20,000 rows): {st.n_iter} iterations, "
+        f"{st.n_evals} evaluations, {secs:.2f} s; LOO {loo0:.3f} -> "
+        f"{loo1:.3f} ({card})")
+    check("quickstart fit loo", np.isfinite(float(st.f)) and bool(
+        torch.isfinite(st.x).all()) and loo1 > loo0, f"{loo0} -> {loo1}")
+
+    with torch.no_grad():
+        l0 = float(log_evidence(*pack.unpack(pack.x0), X20, y20,
+                                variational=True))
+    for name, trainer in (("train_sgd", train_sgd), ("train_smd", train_smd)):
+        secs = []
+        for _ in range(2):  # the first call pays torch.func's set-up
+            t0 = time.perf_counter()
+            res = trainer(SeIso, X20, y20, variational=True, max_iter=5,
+                          eta0=1e-5, **start())
+            secs.append(time.perf_counter() - t0)
+        l = float(res.l)
+        log(f"quickstart {name} (20,000 rows, 5 iterations, eta0 1e-5): "
+            f"best evidence {l:.3f} from {l0:.3f}, sigma2 "
+            f"{float(res.sigma2):.5f}, {secs[0]:.2f} s, again {secs[1]:.2f} "
+            f"s ({card})")
+        check(f"quickstart {name}", np.isfinite(l) and l >= l0, f"{l0} -> "
+              f"{l}")
+
+    kernel = SeIso(device=dev, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ms = median_ms(lambda: choose_n_random_inputs(gen, kernel, X32, M))
+    zr = choose_n_random_inputs(gen, kernel, X32, M)
+    found = torch.cat([(X32[None] == zr[i:i + 25, None]).all(-1).any(-1)
+                       for i in range(0, M, 25)])
+    distinct = torch.unique(zr, dim=0).shape[0]
+    log(f"quickstart choose_n_random_inputs: {distinct} distinct rows, "
+        f"{int(found.sum())} of {M} found in X, {ms:.3f} ms ({card})")
+    check("quickstart choose_n_random_inputs", distinct == M and bool(
+        found.all()), f"{distinct} distinct, {int(found.sum())} found")
+    t0 = time.perf_counter()
+    zk = choose_kmeans_inputs(gen, kernel, X32, M, iters=10,
+                              subsample=100_000)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"quickstart choose_kmeans_inputs (100,000 rows, 10 iterations): "
+        f"{tuple(zk.shape)} finite={bool(torch.isfinite(zk).all())}, "
+        f"{1e3 * secs:.1f} ms ({card})")
+    check("quickstart choose_kmeans_inputs", tuple(zk.shape) == (M, D)
+          and bool(torch.isfinite(zk).all()), "centroids")
+
+
+def quickstart_phase(dev, card: str, data) -> None:
+    X32, _, Z = data
+    yf = bench_targets(dev, X32)
+    z = torch.as_tensor(Z, device=dev)
+    result = quickstart_train(dev, card, X32, yf, z)
+    quickstart_serve(dev, card, X32, result)
+    quickstart_dense(dev, card, X32, yf, z)
+
+
 def main() -> int:
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -980,6 +1322,7 @@ def main() -> int:
     fit_phase(dev, card, data)
     rows.append(roofline_phase(dev, card))
     restarts_phase(dev, card, data)
+    quickstart_phase(dev, card, data)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

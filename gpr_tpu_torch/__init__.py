@@ -7,15 +7,20 @@ keeps ``gpr_tpu``'s module layout and function names; the kernels that
 tensors run.  Ported so far: the SE-iso streaming conditioning and serving
 path (``models.streaming``), its training step (the hand VJP of
 ``models.stream_grad`` and the L-BFGS ``optim.fit``), the dense engine
-(``models.fitc``), multi-start training with f64 rescoring and the f64
-polish (``optim.fit_restarts``, ``optim.polish``), the roofline GEMM chain
-(``ops.gemm_chain``) and the npz model artifacts (``io``).
+(``models.fitc``) with the inducing choosers, multi-start training with
+f64 rescoring and the f64 polish (``optim.fit_restarts``,
+``optim.polish``), the README's Quick-start path (the host ``optim.train``
+with checkpoint and resume in ``io.resume``, ``optim.train_sgd`` and
+``optim.train_smd``, dense serving in ``models.predict``, ``models.stats``
+and ``models.sample``, the FITC LOO of ``models.loo``, ``datasets``), the
+roofline GEMM chain (``ops.gemm_chain``) and the npz model artifacts
+(``io``).
 """
 
 __version__ = "0.1.0"
 
-from . import io, kernels, models, numerics, ops, optim
+from . import datasets, io, kernels, models, numerics, ops, optim
 from .config import config
 
-__all__ = ["io", "kernels", "models", "numerics", "ops", "optim", "config",
-           "__version__"]
+__all__ = ["datasets", "io", "kernels", "models", "numerics", "ops", "optim",
+           "config", "__version__"]

@@ -1,3 +1,9 @@
-from .checkpoint import ModelArtifact, load_model, save_model
+from .checkpoint import (
+    ModelArtifact,
+    artifact_from_trained,
+    load_model,
+    save_model,
+)
 
-__all__ = ["ModelArtifact", "load_model", "save_model"]
+__all__ = ["ModelArtifact", "artifact_from_trained", "load_model",
+           "save_model"]

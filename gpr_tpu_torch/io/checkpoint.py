@@ -4,9 +4,9 @@ The counterpart of ``gpr_tpu/io/checkpoint.py``, with the same schema
 (``SCHEMA_VERSION = 1``), so an artifact written by either package loads in
 the other: a flat npz with a json manifest, every leaf a named numpy array.
 Only the ``se_iso`` family is ported; its parameters are the flat arrays
-``param__log_ell`` and ``param__log_sf2``.  This module uses numpy only;
-``gpr_tpu_torch.convert.params_from_artifact`` turns an artifact into
-tensors.
+``param__log_ell`` and ``param__log_sf2``.  ``artifact_from_trained`` takes
+tensors to the host; ``gpr_tpu_torch.convert.params_from_artifact`` turns
+an artifact back into tensors.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import dataclasses
 import json
 
 import numpy as np
+import torch
 
 from ..kernels import resolve_family
 
@@ -39,6 +40,36 @@ class ModelArtifact:
     @property
     def family(self):
         return resolve_family(self.family_name)
+
+
+def artifact_from_trained(family, trained, *, target_mean=0.0,
+                          input_means=None, input_stddevs=None,
+                          kernel_params) -> ModelArtifact:
+    """The artifact of a trained state (dense or streaming) and its kernel
+    module ``kernel_params``, e.g. a ``TrainResult``'s ``trained`` and
+    ``kernel_params``; tensors go to the host."""
+
+    def host(t):
+        return torch.as_tensor(t).detach().cpu().numpy()
+
+    model = trained.model
+    z = model.inducing.z
+    d = z.shape[1] if z.ndim == 2 else 1
+    return ModelArtifact(
+        family_name=family.name,
+        kernel_params={name: host(getattr(kernel_params, name))
+                       for name in type(kernel_params).param_names},
+        inducing=host(z),
+        coeffs=host(trained.coeffs),
+        chol_km=host(model.inducing.chol_km),
+        r_mat=host(model.r_mat),
+        sigma2=float(model.sigma2),
+        target_mean=float(target_mean),
+        input_means=np.asarray(input_means if input_means is not None
+                               else np.zeros(d)),
+        input_stddevs=np.asarray(input_stddevs if input_stddevs is not None
+                                 else np.ones(d)),
+    )
 
 
 def save_model(path: str, art: ModelArtifact, extra_arrays: dict | None = None):

@@ -43,6 +43,19 @@ class SeIso(nn.Module):
         self.log_sf2 = log_sf2
         return self
 
+    @classmethod
+    def default_params(cls, X: torch.Tensor, n_inducing: int,
+                       generator: torch.Generator | None = None) -> "SeIso":
+        """The reference's defaults, log_ell = log_sf2 = 0
+        (lib/cov_se_iso.ml:122-123), on X's device and dtype.  The SE-iso
+        defaults draw nothing: ``n_inducing`` and ``generator`` are the
+        family interface's."""
+        return cls(0.0, 0.0, device=X.device, dtype=X.dtype)
+
+    def inducing_from_inputs(self, X: torch.Tensor) -> torch.Tensor:
+        """Inducing points live in input space (lib/cov_se_iso.ml:120)."""
+        return X
+
     def _k_of_d2(self, d2: torch.Tensor) -> torch.Tensor:
         inv_ell2_05 = -0.5 * torch.exp(-2.0 * self.log_ell)
         return torch.exp(self.log_sf2 + inv_ell2_05 * d2)
@@ -61,6 +74,14 @@ class SeIso(nn.Module):
     def k_cross(self, X: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         """(n, m) cross-covariance K(X, Z)."""
         return self._k_of_d2(sqdist(X, z))
+
+    def k_upper_inputs(self, X: torch.Tensor) -> torch.Tensor:
+        """(n, n) K(X, X): the inputs' own covariance, as ``k_upper``."""
+        return self.k_upper(X)
+
+    def k_one(self, x: torch.Tensor) -> torch.Tensor:
+        """Prior variance at one input: sf2."""
+        return torch.exp(self.log_sf2)
 
     def k_cross_vjp(self, X, z, knm, knm_bar, kd_bar):
         """Hand-fused pullback of (k_cross, k_diag) given the computed

@@ -25,6 +25,7 @@ import math
 import torch
 
 from ..config import config
+from ..kernels.base import sqdist
 from ..numerics.linalg import (
     cholesky_upper,
     log_det_tri,
@@ -73,6 +74,56 @@ class TrainedState:
     coeffs: torch.Tensor  # (m,)
     l2: torch.Tensor
     l: torch.Tensor  # total log evidence l1 + l2
+
+
+def choose_n_first_inputs(kernel, X: torch.Tensor,
+                          n_inducing: int) -> torch.Tensor:
+    """First-n selection (fitc_gp.ml:66-72)."""
+    return kernel.inducing_from_inputs(X[:n_inducing])
+
+
+def _draw_rows(generator, n: int, k: int, device) -> torch.Tensor:
+    """k distinct row indices of n, uniformly: the head of a permutation
+    drawn on ``device`` (whose generator ``generator`` must be)."""
+    return torch.randperm(n, generator=generator, device=device)[:k]
+
+
+def choose_n_random_inputs(generator, kernel, X: torch.Tensor,
+                           n_inducing: int) -> torch.Tensor:
+    """Uniform random subset without replacement (the reference's
+    Fisher-Yates draw, fitc_gp.ml:74-89), drawn on X's device."""
+    idx = _draw_rows(generator, X.shape[0], n_inducing, X.device)
+    return kernel.inducing_from_inputs(X[idx])
+
+
+def _lloyd(X: torch.Tensor, c: torch.Tensor, iters: int) -> torch.Tensor:
+    """``iters`` Lloyd iterations from centroids ``c``: assignment by the
+    sqdist argmin, sums by a one-hot GEMM (no scatter); an empty cluster
+    keeps its centroid."""
+    m = c.shape[0]
+    for _ in range(iters):
+        assign = torch.argmin(sqdist(X, c), dim=1)
+        onehot = torch.nn.functional.one_hot(assign, m).to(X.dtype)
+        counts = torch.sum(onehot, dim=0)
+        sums = matmul(onehot.mT, X)
+        c = torch.where(counts[:, None] > 0,
+                        sums / torch.clamp(counts, min=1.0)[:, None], c)
+    return c
+
+
+def choose_kmeans_inputs(generator, kernel, X: torch.Tensor,
+                         n_inducing: int, *, iters: int = 10,
+                         subsample: int | None = 100_000) -> torch.Tensor:
+    """k-means inducing initialization (an extension; the reference only
+    draws a random subset): Lloyd iterations from ``n_inducing`` random
+    rows, on a random subsample of ``subsample`` rows where n exceeds it.
+    Returns the kernel's inducing representation of the centroids."""
+    n = X.shape[0]
+    if subsample is not None and n > subsample:
+        X = X[_draw_rows(generator, n, subsample, X.device)]
+        n = subsample
+    c0 = X[_draw_rows(generator, n, n_inducing, X.device)]
+    return kernel.inducing_from_inputs(_lloyd(X, c0, iters))
 
 
 def calc_inducing(kernel, z: torch.Tensor,

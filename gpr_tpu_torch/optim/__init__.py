@@ -10,6 +10,24 @@ from .lbfgs_device import (
 from .pack import HyperPack, make_pack
 from .polish import PolishReport, evaluate_f64, polish
 from .priors import field_priors, normal, soft_box
-from .train import default_n_inducing, default_sigma2, make_objective
+from .sgd_smd import (
+    SGDState,
+    SMDState,
+    run_ascent,
+    sgd_create,
+    sgd_step,
+    smd_create,
+    smd_step,
+)
+from .train import (
+    Bailout,
+    TrainResult,
+    default_n_inducing,
+    default_sigma2,
+    make_objective,
+    train,
+    train_sgd,
+    train_smd,
+)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

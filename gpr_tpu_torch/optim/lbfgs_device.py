@@ -228,26 +228,32 @@ def minimize_lbfgs_device(
 
 def _make_fg(pack, variational, streaming_block_size, scale, log_prior,
              objective="evidence"):
-    """(x, X, y) -> (f, grad) of the packed, scaled negative evidence (+
+    """(x, X, y) -> (f, grad) of the packed, scaled negative objective (+
     optional prior): the streaming evidence with ``streaming_block_size``,
-    else the dense engine (whitened Cholesky factorization).  The one
-    objective builder of fit and fit_restarts."""
+    else the dense engine (whitened Cholesky factorization).  ``objective``
+    "loo" is the closed-form LOO pseudo-likelihood (``models/loo.py``),
+    which needs the materialized Knm: no streaming, and variational does
+    not apply.  fit and fit_restarts both build their objective here."""
     from ..models.fitc import calc_model, calc_trained
+    from ..models.loo import loo_objective
     from ..models.streaming import streaming_log_evidence
 
     if objective not in ("evidence", "loo"):
         raise ValueError(f"unknown objective {objective!r}")
-    if objective == "loo":
-        raise NotImplementedError(
-            "objective='loo' needs models/loo.py, which is not ported yet "
-            "(ROADMAP.md, queue 1)"
+    if objective == "loo" and streaming_block_size is not None:
+        raise ValueError(
+            "objective='loo' needs the materialized n x m cross-covariance "
+            "(models/loo.py); drop streaming_block_size"
         )
 
     def fg_of(x, X, y):
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
             kernel, z, sigma2 = pack.unpack(x)
-            if streaming_block_size is not None:
+            if objective == "loo":
+                l = loo_objective(kernel, z, sigma2, X, y,
+                                  factorization="chol")
+            elif streaming_block_size is not None:
                 l = streaming_log_evidence(kernel, z, sigma2, X, y,
                                            variational=variational,
                                            block_size=streaming_block_size)
@@ -335,7 +341,8 @@ def fit(X, y, pack, *, variational: bool = False, step: float = 0.1,
     mean NLL, which f32 training at large n needs; ``epsabs`` then applies
     to mean-scale gradient norms.  ``streaming_block_size`` switches the
     objective to the streaming evidence; without it the dense engine runs
-    (``objective="loo"`` is not ported and raises).  ``f_noise``
+    (``objective="loo"``, the LOO pseudo-likelihood, takes the dense engine
+    only).  ``f_noise``
     defaults to a few f32 ulps of a unit-scale objective for f32 data, 0
     for f64.  ``log_prior(kernel, z, sigma2)`` makes it MAP estimation
     (``optim.priors``).  ``init_state`` resumes a previous run (``max_iter``

@@ -6,10 +6,12 @@ import sys
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent / "gpr_tpu_torch"
-# modules of the training leg and the roofline path, named so that a move
-# or a rename cannot drop them from the scan unnoticed
+# modules of the training leg, the roofline path and the Quick-start path,
+# named so that a move or a rename cannot drop them from the scan unnoticed
 NEWER = ("models/fitc.py", "optim/lbfgs.py", "optim/train.py",
-         "optim/polish.py", "ops/gemm_chain.py")
+         "optim/polish.py", "ops/gemm_chain.py", "datasets.py",
+         "models/predict.py", "models/stats.py", "models/sample.py",
+         "models/loo.py", "optim/sgd_smd.py", "io/resume.py")
 
 
 def _jax_imports(path):
@@ -42,7 +44,13 @@ def test_import_loads_no_jax():
         "before = set(sys.modules)\n"
         "import gpr_tpu_torch, gpr_tpu_torch.convert\n"
         "import gpr_tpu_torch.optim.polish, gpr_tpu_torch.optim.train\n"
-        "import gpr_tpu_torch.ops.gemm_chain\n"
+        "import gpr_tpu_torch.ops.gemm_chain, gpr_tpu_torch.io.resume\n"
+        "from gpr_tpu_torch.kernels import SeIso\n"
+        "from gpr_tpu_torch.optim import train, train_sgd, train_smd\n"
+        "from gpr_tpu_torch.models import (calc_stats, mean_predictor, "
+        "co_variance_predictor, predict_means, predict_variances, "
+        "cov_sample, loo_objective_fitc)\n"
+        "from gpr_tpu_torch.datasets import gen_data\n"
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
         "'gpr_tpu')]\n"

@@ -205,19 +205,19 @@ def test_fit_matches_jax_iterates(rng, prior):
 
 
 def test_fit_refuses_unported_objectives(rng):
-    """Only objective="loo" (models/loo.py) is refused: without
-    streaming_block_size the dense engine trains, on either objective
-    route, and an unknown objective is an error."""
+    """objective="loo" (models/loo.py) needs the dense engine: with
+    streaming_block_size it is refused, as in the JAX package.  Without
+    it the dense engine trains on either objective, and an unknown
+    objective is an error."""
     X, y, Z = _gp(rng, n=50)
     _, pack = _packs(Z)
-    for block in (None, 64):
-        with pytest.raises(NotImplementedError, match="loo"):
-            fit(_t(X), _t(y), pack, streaming_block_size=block,
-                objective="loo")
+    with pytest.raises(ValueError, match="loo"):
+        fit(_t(X), _t(y), pack, streaming_block_size=64, objective="loo")
     with pytest.raises(ValueError, match="unknown objective"):
         fit(_t(X), _t(y), pack, objective="nll")
-    *_, st = fit(_t(X), _t(y), pack, max_iter=3)
-    assert st.n_iter == 3 and bool(torch.isfinite(st.f))
+    for objective in ("evidence", "loo"):
+        *_, st = fit(_t(X), _t(y), pack, max_iter=3, objective=objective)
+        assert st.n_iter == 3 and bool(torch.isfinite(st.f))
 
 
 def test_fit_resumes_from_state(rng):
