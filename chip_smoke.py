@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive gpr_tpu_torch's streaming serving and training paths, and the
-README's Quick-start path, once on one NVIDIA GPU.
+"""Drive gpr_tpu_torch's streaming serving and training paths, the
+README's Quick-start path, bench.py's flagship se_fat leg and the
+command-line trainer/predictor, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -107,6 +108,29 @@ Phases, each printed on its own line:
    the start evidence; ``choose_n_random_inputs`` picks 300 distinct rows of X and
    ``choose_kmeans_inputs`` (100,000-row subsample, 10 iterations) finite
    centroids.
+11. flagship -- bench.py's se_fat leg (bench.py:539-563) on the same draw:
+   d = 8, log_sf2 0.1, tproj the fourth draw of bench's default_rng(0) over
+   D, hetero noise -5, multiscales 0, Z the projection of X's first 300
+   rows, sigma2 0.1, variational, block 16,384.  Value and gradient in f32
+   through the plain loop (se_fat has no kernel; no se_iso kernel may
+   launch) against its f64 twin on the card: the evidence within 2e-5
+   relative, each gradient group (log_sf2, tproj, hetero, multiscales, z,
+   sigma2) within 1e-3 (2-norm); then the median of 5 value+grad times with
+   the SM clock, the power draw and the peak memory.
+12. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
+   bench's draw (the first 200,000 rows of X with the fit phase's targets;
+   rows 200,000-299,999 to test on), se_fat with -n-inducing 300 -dim-red 8
+   -log-het-sked -5 -multiscale -inducing-init first -seed 0: (a) the host
+   trainer, -max-iter 5; (b) -trainer device -block-size 16384, -max-iter 5,
+   and the same stopped by -max-iter 2 with -checkpoint and resumed to 5,
+   whose hypers must equal the uninterrupted run's (bit-equal expected;
+   fails above 1e-6 relative); (c) -cmd test -with-stddev with the host and
+   the resumed artifact: 100,000 finite lines whose means equal, as
+   printed, the library's predict_means on the loaded artifact.  Each
+   command's wall time, iterations and evaluations (the device trainer
+   prints them), the log evidence (recomputed here in f64) and SMSE, which
+   CSV parser ran, and the wall time of -cmd test on one row (what every
+   command pays to start).
 Timings: median of 5 after a warm-up, host clock around synchronised
 calls, or CUDA events where named (the chain and its torch.matmul
 yardstick: median of 10, in two turns each); one run for the trainers.
@@ -128,12 +152,15 @@ import sys
 import tempfile
 import time
 from datetime import datetime
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from gpr_tpu_torch.convert import from_jax_params
-from gpr_tpu_torch.kernels import SeIso
+from gpr_tpu_torch.convert import from_jax_params, params_from_artifact
+from gpr_tpu_torch.io import load_model, native
+from gpr_tpu_torch.kernels import SeFat, SeIso
+from gpr_tpu_torch.kernels.base import hyper_leaves
 from gpr_tpu_torch.models import streaming
 from gpr_tpu_torch.models.fitc import calc_inducing
 from gpr_tpu_torch.numerics.linalg import inv_tri_upper
@@ -155,6 +182,7 @@ from gpr_tpu_torch.models import (
     covariances_fitc,
     log_evidence,
     loo_objective_fitc,
+    MeanPredictor,
     mean_predictor,
     predict_means,
     predict_variances,
@@ -1310,6 +1338,220 @@ def quickstart_phase(dev, card: str, data) -> None:
     quickstart_dense(dev, card, X32, yf, z)
 
 
+# -- flagship: bench.py's se_fat leg (bench.py:539-563)
+FLAGSHIP_BLOCK = 16_384  # bench.py's; se_fat runs the plain loop, no grid
+FLAGSHIP_GRADS = ("log_sf2", "tproj", "log_hetero_skedasticity",
+                  "log_multiscales_m05", "z", "sigma2")
+
+
+def bench_tproj() -> np.ndarray:
+    """bench.py's se_fat projection: the fourth draw of its
+    ``default_rng(0)``, after X, y and Z, over D."""
+    rng = np.random.default_rng(0)
+    rng.standard_normal((N, D))
+    rng.standard_normal(N)
+    rng.standard_normal((M, D))
+    return rng.standard_normal((D, D)) / D
+
+
+def flagship_value_and_grad(dev, dtype, X, y, tproj):
+    """The se_fat variational evidence and its gradient groups (in
+    FLAGSHIP_GRADS order) at bench.py's flagship parameters."""
+    kernel = SeFat(D, 0.1, tproj=tproj,
+                   log_hetero_skedasticity=np.full(M, -5.0),
+                   log_multiscales_m05=np.zeros((M, D)), device=dev,
+                   dtype=dtype)
+    with torch.no_grad():
+        z = kernel.inducing_from_inputs(X[:M])
+    z.requires_grad_(True)
+    s2 = torch.tensor(SIGMA2, dtype=dtype, device=dev, requires_grad=True)
+    ev = streaming.streaming_log_evidence(kernel, z, s2, X, y,
+                                          variational=True,
+                                          block_size=FLAGSHIP_BLOCK)
+    ev.backward()
+    grads = [getattr(kernel, name).grad for name in FLAGSHIP_GRADS[:4]]
+    return ev.item(), (*grads, z.grad, s2.grad)
+
+
+def flagship_phase(dev, card: str, data) -> None:
+    """bench.py's flagship: se_fat variational FIC at 1M x 8, m = 300,
+    value and gradient in f32 through the plain loop, held against its f64
+    twin; no se_iso kernel may launch."""
+    X32, y32, _ = data
+    tproj = bench_tproj()
+    (ev, grads), launches = counted(
+        "flagship", lambda: flagship_value_and_grad(dev, torch.float32, X32,
+                                                    y32, tproj), ())
+    check("flagship launches", not any(launches.values()),
+          f"se_fat launched a se_iso kernel: {launches}")
+    ev64, grads64 = flagship_value_and_grad(dev, torch.float64,
+                                            X32.double(), y32.double(),
+                                            tproj)
+    rel = (ev - ev64) / abs(ev64)
+    log(f"flagship evidence f32: {ev:.3f} vs f64 twin {ev64:.3f} "
+        f"({ev - ev64:+.3f} nats, rel {rel:+.2e})")
+    check("flagship evidence", abs(rel) <= 2e-5, f"rel {rel:.3e}")
+    for name, g, w in zip(FLAGSHIP_GRADS, grads, grads64):
+        err = rel_norm(g, w)
+        log(f"flagship grad {name}: rel err {err:.2e} vs f64 twin (|grad| "
+            f"{float(torch.linalg.norm(w)):.4e})")
+        check(f"flagship grad {name}", err <= 1e-3
+              and bool(torch.isfinite(g).all()), f"rel {err:.3e}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    sampler = clock_log()
+    try:
+        t0 = time.time()
+        ms = median_ms(lambda: flagship_value_and_grad(
+            dev, torch.float32, X32, y32, tproj))
+        t1 = time.time()
+    finally:
+        samples = read_clock_log(sampler)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    log(f"time flagship se_fat value+grad f32: {ms:.3f} ms (median of 5, "
+        f"block {FLAGSHIP_BLOCK}); peak memory {peak / 2**20:.1f} MiB above "
+        f"the data; {clock_window(samples, t0, t1)} ({card})")
+
+
+# -- cli: the command-line trainer/predictor in subprocesses
+CLI_TRAIN, CLI_TEST = 200_000, 100_000  # rows of bench's draw
+CLI_COMMON = ("-n-inducing", "300", "-dim-red", "8", "-log-het-sked", "-5",
+              "-multiscale", "-inducing-init", "first", "-seed", "0",
+              "-verbose")
+CLI_DEVICE = ("-trainer", "device", "-block-size", "16384")
+
+
+def cli_run(tmp, tag, argv, stdin_path):
+    """Run ``python3 -m gpr_tpu_torch.cli`` on the card with ``stdin_path``
+    as its standard input; (wall seconds, stdout path, stderr text)."""
+    out = f"{tmp}/{tag}.out"
+    t0 = time.perf_counter()
+    with open(stdin_path, "rb") as fin, open(out, "wb") as fout:
+        proc = subprocess.run(
+            [sys.executable, "-m", "gpr_tpu_torch.cli", *argv], stdin=fin,
+            stdout=fout, stderr=subprocess.PIPE, text=False, timeout=600,
+            cwd=str(Path(__file__).resolve().parent))
+    secs = time.perf_counter() - t0
+    err = proc.stderr.decode()
+    check(f"cli {tag}", proc.returncode == 0,
+          f"exit {proc.returncode}: {err[-2000:]}")
+    return secs, out, err
+
+
+def cli_artifact(path, dev):
+    """(artifact, kernel, z, sigma2) of a CLI model file, in f64 on dev."""
+    art, _ = load_model(path)
+    return (art, *params_from_artifact(art, device=dev, dtype=torch.float64))
+
+
+def cli_hypers(path, dev) -> torch.Tensor:
+    """Every learned number of a CLI model file, flattened."""
+    art, kernel, z, s2 = cli_artifact(path, dev)
+    return torch.cat([*(t.detach().reshape(-1) for t in
+                        hyper_leaves(kernel)[1]), z.reshape(-1),
+                      s2.reshape(1)])
+
+
+def cli_report(tag, secs, err, model, dev, Xtr, ytr, card) -> None:
+    """Wall time, iterations and evaluations (the device trainer's last
+    ``iter`` line; the host trainer prints no count), the final log evidence
+    (recomputed here in f64 from the artifact) and the SMSE of the
+    ``result:`` line."""
+    art, kernel, z, s2 = cli_artifact(model, dev)
+    xs = (Xtr - torch.as_tensor(art.input_means, device=dev)) / \
+        torch.as_tensor(art.input_stddevs, device=dev)
+    with torch.no_grad():
+        l = float(streaming.streaming_log_evidence(
+            kernel, z, s2, xs, ytr - art.target_mean, variational=True,
+            block_size=FLAGSHIP_BLOCK))
+    smse = re.findall(r"^result: .*SMSE=([0-9.eE+-]+)", err, re.M)
+    steps = re.findall(r"^iter +([0-9]+): f=.* evals=([0-9]+)", err, re.M)
+    counts = (f"{steps[-1][0]} iterations, {steps[-1][1]} evaluations"
+              if steps else "iterations and evaluations not printed by the "
+              "host trainer (-max-iter 5 bounds them)")
+    log(f"cli {tag}: {secs:.2f} s wall; {counts}; log evidence {l:.3f}; "
+        f"SMSE {smse[-1] if smse else 'not printed'} ({card})")
+    check(f"cli {tag}", np.isfinite(l) and bool(smse), "evidence or SMSE")
+
+
+def cli_phase(dev, card: str, data) -> None:
+    X32, _, _ = data
+    yf = bench_targets(dev, X32)
+    Xtr = X32[:CLI_TRAIN].double()
+    ytr = yf[:CLI_TRAIN].double()
+    Xte = X32[CLI_TRAIN:CLI_TRAIN + CLI_TEST].cpu().numpy()
+    t0 = time.perf_counter()
+    parser = native.get_lib()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_csv, test_csv = f"{tmp}/train.csv", f"{tmp}/test.csv"
+        np.savetxt(train_csv, np.column_stack(
+            [Xtr.cpu().numpy(), ytr.cpu().numpy()]), fmt="%.9g",
+            delimiter=",")
+        np.savetxt(test_csv, Xte, fmt="%.9g", delimiter=",")
+        which = f"native {Path(parser._name).name}" if parser else "python"
+        log(f"cli data: {CLI_TRAIN} training rows and {CLI_TEST} test rows "
+            f"of bench's draw written in {time.perf_counter() - t0:.2f} s; "
+            f"csv parser: {which}")
+
+        def train(tag, *flags):
+            model = f"{tmp}/{tag}.npz"
+            secs, _, err = cli_run(tmp, tag, ("-cmd", "train", "-model",
+                                              model, *CLI_COMMON, *flags),
+                                   train_csv)
+            cli_report(tag, secs, err, model, dev, Xtr, ytr, card)
+            return model
+
+        host = train("host", "-max-iter", "5")
+        full = train("device", *CLI_DEVICE, "-max-iter", "5")
+        ckpt = f"{tmp}/device.ckpt.npz"
+        train("device-part", *CLI_DEVICE, "-max-iter", "2", "-checkpoint",
+              ckpt)
+        resumed = train("device-resumed", *CLI_DEVICE, "-max-iter", "5",
+                        "-checkpoint", ckpt, "-resume")
+        got, want = cli_hypers(resumed, dev), cli_hypers(full, dev)
+        rel = rel_norm(got, want)
+        same = ("bit-equal to" if torch.equal(got, want)
+                else f"rel {rel:.3e} from")
+        log(f"cli resume: final hypers {same} the uninterrupted device "
+            f"run's ({card})")
+        check("cli resume", rel <= 1e-6, f"hypers off by rel {rel:.3e}")
+
+        # a process that does next to nothing: what every command pays to
+        # start (interpreter, torch, the card's context)
+        one_row = f"{tmp}/one.csv"
+        np.savetxt(one_row, Xte[:1], fmt="%.9g", delimiter=",")
+        secs, _, _ = cli_run(tmp, "start", ("-cmd", "test", "-model", host),
+                             one_row)
+        log(f"cli start-up: {secs:.2f} s wall for -cmd test on one row "
+            f"({card})")
+
+        xs_raw = torch.as_tensor(native.load_csv_file(test_csv), device=dev)
+        for tag, model in (("host", host), ("device-resumed", resumed)):
+            secs, out, _ = cli_run(tmp, f"test-{tag}", (
+                "-cmd", "test", "-model", model, "-with-stddev"), test_csv)
+            lines = Path(out).read_text().splitlines()
+            vals = np.array([[float(v) for v in line.split(",")]
+                             for line in lines])
+            art, kernel, z, _ = cli_artifact(model, dev)
+            xs = (xs_raw - torch.as_tensor(art.input_means, device=dev)) / \
+                torch.as_tensor(art.input_stddevs, device=dev)
+            with torch.no_grad():
+                means = predict_means(kernel, MeanPredictor(
+                    z=z, coeffs=torch.as_tensor(art.coeffs, device=dev)), xs)
+            want_text = [f"{v:f}" for v in
+                         means.cpu().numpy() + art.target_mean]
+            same = sum(line.split(",")[0] == w
+                       for line, w in zip(lines, want_text))
+            log(f"cli test {tag}: {secs:.2f} s wall; {len(lines)} lines, "
+                f"finite {bool(np.isfinite(vals).all())}, stddev > 0 "
+                f"{bool((vals[:, 1] > 0).all())}; {same} of {CLI_TEST} means "
+                f"equal to the library's predict_means as printed ({card})")
+            check(f"cli test {tag}", vals.shape == (CLI_TEST, 2)
+                  and bool(np.isfinite(vals).all()) and same == CLI_TEST,
+                  f"shape {vals.shape}, {same} means equal")
+    log(f"cli phase: {time.perf_counter() - t0:.2f} s ({card})")
+
+
 def main() -> int:
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -1323,6 +1565,8 @@ def main() -> int:
     rows.append(roofline_phase(dev, card))
     restarts_phase(dev, card, data)
     quickstart_phase(dev, card, data)
+    flagship_phase(dev, card, data)
+    cli_phase(dev, card, data)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,943 @@
+"""Command-line trainer/predictor — the rebuild of bin/ocaml_gpr.ml.
+
+The counterpart of ``gpr_tpu/cli.py`` in PyTorch: the same flags, the same
+CSV-over-stdin protocol and the same text on stdout and stderr, for the
+regression path.  Training is the variational FIC with the se_fat kernel
+by default (bin/ocaml_gpr.ml:176-177; ``-kernel se_iso`` is the other
+ported family): target centering and the reference's per-dimension input
+standardization (:249-269), L-BFGS evidence maximization with 1 Hz
+throttled verbose reports and a SIGINT-safe best-model bailout (:301-349),
+the host trainer or ``-trainer device`` (with ``-restarts``, ``-polish``,
+the sparse ``-loo`` and ``-checkpoint``/``-resume``), and the npz artifact
+of ``io/checkpoint.py``, which either package loads.  ``-cmd test`` prints
+the means (and ``-with-stddev`` the standard deviations) of a regression
+artifact.
+
+Everything runs in f64, as the reference's LAPACK does, on the card
+(``cuda``) unless ``GPR_TPU_PLATFORM=cpu`` asks for the CPU; with no GPU
+and no such request the program exits rather than fall back.  The random
+draws of a restart come from ``np.random.default_rng(seed + r)`` (the
+projection, bit-equal to the JAX package's) and from a
+``torch.Generator`` seeded with ``seed + r`` (random or k-means inducing
+rows, which therefore differ from the JAX package's).
+
+Flags of modules that are not ported yet (``-tasks``, ``-exact``, ``-cg``,
+``-pitc-block``, ``-warp``, the likelihood flags, ``-trainer sharded``,
+``-devices``, families other than se_iso and se_fat) pass the JAX
+package's flag checks in its order, then exit naming their ROADMAP.md item.
+
+Run: ``python3 -m gpr_tpu_torch.cli -cmd train -model m.npz < train.csv``,
+then ``python3 -m gpr_tpu_torch.cli -cmd test -model m.npz < test.csv``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import signal
+import sys
+import time
+
+import numpy as np
+import torch
+
+F64 = torch.float64
+#: the ROADMAP.md queue 1 item that ports each flag's module
+_NOT_PORTED = (
+    ("tasks", "-tasks", 8),
+    ("cg", "-cg", 10),
+    ("exact", "-exact", 9),
+    ("pitc_block", "-pitc-block", 9),
+    ("warp", "-warp", 9),
+    ("student_t", "-student-t", 9),
+    ("classify", "-classify", 11),
+    ("poisson", "-poisson", 11),
+    ("binomial", "-binomial", 11),
+    ("negbin", "-negbin", 11),
+    ("ordinal", "-ordinal", 11),
+    ("devices", "-devices", 13),
+)
+#: artifact extras of the models that are not ported yet, in the JAX
+#: package's order of dispatch, and their ROADMAP.md queue 1 items
+_NOT_PORTED_EXTRAS = (("poisson", 11), ("negbin", 11), ("ordinal", 11),
+                      ("classify", 11), ("exact_cg", 10), ("exact", 9),
+                      ("warp_log_a", 9))
+
+
+def _not_ported(what: str, item: int):
+    return SystemExit(f"{what} is not ported to gpr_tpu_torch yet "
+                      f"(ROADMAP.md, queue 1 item {item})")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="gpr_tpu", description=__doc__.splitlines()[0]
+    )
+    p.add_argument("-cmd", choices=["train", "test"], default="train",
+                   help="train (default) or test model")
+    p.add_argument("-model", required=True, help="model file to use")
+    p.add_argument("-with-stddev", dest="with_stddev", action="store_true",
+                   help="make predictions with both mean and standard deviation")
+    p.add_argument("-predictive", action="store_true",
+                   help="standard deviation includes noise level (predictive)")
+    p.add_argument("-max-iter", dest="max_iter", type=int, default=None,
+                   help="maximum number of optimization steps (default: limitless)")
+    p.add_argument("-n-inducing", dest="n_inducing", type=int, default=10,
+                   help="number of randomly initialized inducing inputs (default: 10)")
+    p.add_argument("-sigma2", type=float, default=1.0,
+                   help="initial noise level (default: 1.0)")
+    p.add_argument("-amplitude", type=float, default=1.0,
+                   help="initial amplitude level (default: 1.0)")
+    p.add_argument("-kernel", default="se_fat",
+                   help="covariance family: se_fat (default, the "
+                        "reference CLI's choice), se_iso, se_ard, "
+                        "matern32, matern52, rq, periodic, cosine, "
+                        "lin_one, lin_ard, const, or a combinator like "
+                        "'sum(se_iso,lin_ard)' / 'prod(periodic,se_iso)' "
+                        "/ 'sum(prod(se_ard,cosine),...)' (nested ok), or "
+                        "smQ (e.g. sm3): a Q-component spectral mixture "
+                        "initialized from the data's empirical spectrum "
+                        "(kernels/sm_init.py; restarts draw power-weighted "
+                        "frequencies).  Non-se_fat families use their "
+                        "default hyper init (-amplitude still sets the "
+                        "signal variance where the family has one); "
+                        "-dim-red/-log-het-sked/-multiscale are "
+                        "se_fat-only")
+    p.add_argument("-inducing-init", dest="inducing_init",
+                   choices=["random", "kmeans", "first"], default="random",
+                   help="inducing-point initialization: random subset "
+                        "(the reference's behavior), k-means centroids "
+                        "(better input-density coverage when m << n and "
+                        "the data clusters; models.fitc."
+                        "choose_kmeans_inputs), or the first n rows.  "
+                        "kmeans is rejected with -tasks (centroids "
+                        "would average the integer task ids)")
+    p.add_argument("-tasks", type=int, default=None, metavar="T",
+                   help="multi-output (ICM) modelling: the LAST input "
+                        "column is an integer task id 0..T-1 and the "
+                        "kernel becomes B[t,t'] * k(features) with a "
+                        "LEARNED T x T coregionalization "
+                        "B = WW' + diag (kernels/task.py; rank of W "
+                        "from -coreg-rank).  The task column is "
+                        "excluded from input standardization.  "
+                        "Composes with any -kernel and with the "
+                        "likelihood flags")
+    p.add_argument("-coreg-rank", dest="coreg_rank", type=int, default=1,
+                   metavar="R",
+                   help="rank of the shared coregionalization factor W "
+                        "(default 1; R = T allows any PSD B)")
+    p.add_argument("-dim-red", dest="dim_red", type=int, default=None,
+                   help="dimensionality reduction (default: none)")
+    p.add_argument("-log-het-sked", dest="log_het_sked", type=float,
+                   default=None,
+                   help="turns on / sets log-heteroskedastic noise")
+    p.add_argument("-multiscale", action="store_true",
+                   help="turns on multiscale approximation")
+    p.add_argument("-tol", type=float, default=0.1,
+                   help="tolerance for gradient descent (default: 0.1)")
+    p.add_argument("-step", type=float, default=0.1,
+                   help="step size for gradient descent (default: 0.1)")
+    p.add_argument("-eps", type=float, default=0.1,
+                   help="epsilon for gradient descent (default: 0.1)")
+    p.add_argument("-block-size", dest="block_size", type=int, default=None,
+                   help="train with the streaming evidence in row blocks of "
+                        "this size: memory stays O(block x m) at any n "
+                        "(default: dense n x m cross-covariance)")
+    p.add_argument("-trainer", choices=["host", "device", "sharded"],
+                   default="host",
+                   help="host (default): callback-rich host L-BFGS loop; "
+                        "device: device-resident chunked L-BFGS "
+                        "(optim.lbfgs_device.fit — production throughput, "
+                        "mean-NLL objective so -eps applies per point); "
+                        "sharded: multi-chip data-parallel training over "
+                        "a device mesh (parallel.fit_sharded)")
+    p.add_argument("-devices", default=None,
+                   help="mesh for -trainer sharded: N (1-D data-parallel "
+                        "mesh) or DxM (2-D data x model mesh — tensor "
+                        "parallelism over the inducing axis, "
+                        "parallel.fit_sharded_2d; M must divide "
+                        "-n-inducing).  Default: all visible devices, 1-D")
+    p.add_argument("-exact", action="store_true",
+                   help="train an EXACT dense GP instead of the sparse "
+                        "approximation (models/exact.py): no inducing "
+                        "points, O(n^3) chol — for small n (capped at "
+                        "20000 rows) and as the gold standard the sparse "
+                        "paths approach.  -n-inducing and the inducing/"
+                        "streaming/mesh flags do not apply")
+    p.add_argument("-cg", action="store_true",
+                   help="with -exact: ITERATIVE exact GP "
+                        "(models/iterative.py) — K is never materialized "
+                        "(blocked MXU matvecs) and the solves run "
+                        "Nystrom/FITC-preconditioned CG, lifting the dense "
+                        "20000-row cap.  Hypers train by SGD on unbiased "
+                        "stochastic exact-evidence gradients "
+                        "(evidence_grads_iter); -n-inducing sets the "
+                        "preconditioner anchor count, -max-iter the SGD "
+                        "steps.  -cmd test serves exact CG variances with "
+                        "-with-stddev.")
+    p.add_argument("-loo", action="store_true",
+                   help="optimize the leave-one-out predictive "
+                        "pseudo-likelihood instead of the evidence (GPML "
+                        "sec. 5.4.2 — more robust to model "
+                        "misspecification).  With -exact: dense closed "
+                        "form (one triangular inverse per step).  Without: "
+                        "the sparse FITC LOO (models/loo.py, O(nm) on top "
+                        "of the evidence pieces) — requires -trainer "
+                        "device, no -block-size")
+    p.add_argument("-pitc-block", dest="pitc_block", type=int, default=None,
+                   metavar="B",
+                   help="train with the PITC evidence instead of FITC: the "
+                        "exact covariance is kept within blocks of B "
+                        "training rows (an accuracy dial between FITC and "
+                        "the exact GP; models/pitc.py).  Requires -trainer "
+                        "device|sharded")
+    p.add_argument("-warp", type=int, default=0, metavar="K",
+                   help="warped GP: learn a K-term monotone tanh-sum "
+                        "observation warp jointly with the hypers "
+                        "(models/warped.py; for skewed/heavy-tailed "
+                        "targets).  Test-time means/stddevs integrate the "
+                        "inverse warp by quadrature.  Requires -trainer "
+                        "device|sharded")
+    p.add_argument("-classify", action="store_true",
+                   help="GP classification (Laplace over the FITC prior): "
+                        "0/1 or -1/+1 targets select the binary classifier "
+                        "(models/classify.py; test output is the class "
+                        "probability, with -with-stddev: "
+                        "prob,latent-stddev); integer targets 0..C-1 "
+                        "select the C-class softmax Laplace "
+                        "(models/classify_multi.py; test output is one "
+                        "probability per class).  Requires -trainer "
+                        "device|sharded")
+    p.add_argument("-poisson", action="store_true",
+                   help="Poisson count regression (Laplace with exp link "
+                        "over the FITC prior, models/poisson.py): targets "
+                        "must be nonnegative counts; test output is the "
+                        "posterior rate mean (with -with-stddev: "
+                        "rate,rate-stddev; unit exposure — use the library "
+                        "API for exposure offsets).  Requires -trainer "
+                        "device|sharded")
+    p.add_argument("-binomial", action="store_true",
+                   help="binomial proportion regression (logit Laplace, "
+                        "models/binomial.py): the training CSV's last TWO "
+                        "columns are trials,successes (so x...,N,y; at "
+                        "N = 1 this is the binary classifier).  Test rows "
+                        "carry only the x columns; output is the success "
+                        "probability per row (with -with-stddev: "
+                        "prob,latent-stddev) — multiply by N* for expected "
+                        "successes.  Requires -trainer device|sharded")
+    p.add_argument("-negbin", dest="negbin", type=float, default=None,
+                   metavar="R0",
+                   help="negative-binomial (overdispersed count) regression "
+                        "(NB2-Laplace with exp link, models/negbin.py): "
+                        "targets must be nonnegative counts; the dispersion "
+                        "r starts at R0 (> 0) and is LEARNED by evidence "
+                        "ascent (reported on stderr and stored in the "
+                        "model file; r -> inf recovers -poisson).  Test "
+                        "output is the posterior count mean per unit "
+                        "exposure (with -with-stddev: mean,count-stddev "
+                        "via the law of total variance).  Requires "
+                        "-trainer device|sharded")
+    p.add_argument("-ordinal", action="store_true",
+                   help="ordinal regression (cumulative probit Laplace "
+                        "with learnable cutpoints, models/ordinal.py): "
+                        "targets must be ordered integer categories "
+                        "0..K-1; test output is one probability per "
+                        "category (with -with-stddev: plus the latent "
+                        "stddev).  Requires -trainer device|sharded")
+    p.add_argument("-student-t", dest="student_t", type=float, default=None,
+                   metavar="NU",
+                   help="robust regression with Student-t noise of NU "
+                        "degrees of freedom (NU > 2; variational EM over "
+                        "the scale mixture, models/robust.py): outlier "
+                        "rows are downweighted automatically; test output "
+                        "is the usual mean (with -with-stddev: the "
+                        "moment-matched predictive stddev).  Requires "
+                        "-trainer device|sharded")
+    p.add_argument("-approx", choices=["laplace", "ep"], default="laplace",
+                   help="Gaussian approximation for -classify (binary): "
+                        "laplace (default; logit likelihood, MacKay probit "
+                        "squash) or ep (expectation propagation, probit "
+                        "likelihood, exact predictive — "
+                        "models/classify_ep.py)")
+    p.add_argument("-polish", type=int, default=0, metavar="N",
+                   help="f64 finishing step after training: re-optimize the "
+                        "hypers on a host-CPU f64 objective over N "
+                        "subsampled rows (0 = off; restores the reference's "
+                        "f64 convergence semantics after an f32 device run)")
+    p.add_argument("-restarts", type=int, default=1,
+                   help="random restarts: retrain from fresh random "
+                        "inducing/projection draws (seed+r) and keep the "
+                        "best final log evidence — the hyper landscape is "
+                        "multi-modal (docs/MANUAL.md section 7)")
+    p.add_argument("-checkpoint", default=None,
+                   help="persist optimizer state to this file every "
+                        "accepted iteration (enables -resume)")
+    p.add_argument("-resume", action="store_true",
+                   help="continue an interrupted -checkpoint run (requires "
+                        "the same data and flags; reproduces the "
+                        "uninterrupted trajectory)")
+    p.add_argument("-verbose", action="store_true",
+                   help="prints information while training")
+    p.add_argument("-seed", type=int, default=None,
+                   help="RNG seed (default: nondeterministic, like the "
+                        "reference's Random.self_init)")
+    return p
+
+
+def _sm_q(kernel: str) -> int | None:
+    """Q for the '-kernel smQ' spectral-mixture shorthand, else None."""
+    import re
+
+    m = re.fullmatch(r"sm([0-9]+)", kernel)
+    if m is None:
+        return None
+    q = int(m.group(1))
+    if q < 1:
+        raise SystemExit("-kernel smQ needs Q >= 1")
+    return q
+
+
+def _family(args):
+    """The selected kernel family (CLI -kernel; default se_fat, the
+    reference CLI's hardwired choice, bin/ocaml_gpr.ml:176-177)."""
+    from .kernels import resolve_family
+
+    if _sm_q(args.kernel) is not None:
+        raise _not_ported(f"-kernel {args.kernel}", 8)
+    try:
+        return resolve_family(args.kernel)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+
+
+def _device() -> torch.device:
+    """The card, or the CPU where ``GPR_TPU_PLATFORM=cpu`` asks for it."""
+    platform = os.environ.get("GPR_TPU_PLATFORM")
+    if platform == "cpu":
+        return torch.device("cpu")
+    if platform not in (None, "", "cuda", "gpu"):
+        raise SystemExit(f"GPR_TPU_PLATFORM={platform}: gpr_tpu_torch runs "
+                         "on cuda or cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device; set GPR_TPU_PLATFORM=cpu to run "
+                         "on the CPU")
+    return torch.device("cuda")
+
+
+def read_samples(stream) -> np.ndarray:
+    # Native fast path: hand the whole input to the C++ parser
+    # (io/native.py); falls back to the line-by-line Python reader when no
+    # toolchain/library is available.
+    try:
+        from .io.native import CsvError, parse_csv_bytes
+
+        data = stream.buffer.read() if hasattr(stream, "buffer") else None
+        if data is not None:
+            try:
+                arr = parse_csv_bytes(data)
+            except CsvError as e:
+                raise SystemExit(str(e))
+            if arr is not None:
+                return arr
+            stream = data.decode().splitlines()  # native lib unavailable
+    except AttributeError:
+        pass
+
+    rows = []
+    d = None
+    for i, line in enumerate(stream):
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            vals = [float(tok) for tok in line.split(",")]
+        except ValueError as e:
+            raise SystemExit(f"failure '{line}' converting sample: {e}")
+        if d is None:
+            d = len(vals)
+        elif len(vals) != d:
+            raise SystemExit(
+                f"incompatible dimension of sample in line {i + 1}: {line}"
+            )
+        rows.append(vals)
+    if not rows:
+        raise SystemExit("no data")
+    return np.asarray(rows, dtype=np.float64)
+
+
+def _check_flags(args, n, big_dim, inputs):
+    """The JAX package's flag checks, in its order and with its messages
+    (``gpr_tpu/cli.py:336-465``); the data checks of the likelihoods that
+    are not ported are left to those modules."""
+    if args.tasks is not None:
+        if args.tasks < 2:
+            raise SystemExit("-tasks T needs T >= 2")
+        if big_dim < 2:
+            raise SystemExit(
+                "-tasks needs feature columns before the task-id column "
+                "(got a single input column)"
+            )
+        if not 1 <= args.coreg_rank <= args.tasks:
+            raise SystemExit("-coreg-rank R needs 1 <= R <= T")
+        tcol = inputs[:, -1]
+        if (not np.all(tcol == np.round(tcol)) or tcol.min() < 0
+                or tcol.max() >= args.tasks):
+            raise SystemExit(
+                f"-tasks {args.tasks}: the last input column must hold "
+                f"integer task ids in 0..{args.tasks - 1}"
+            )
+        if args.inducing_init == "kmeans":
+            raise SystemExit(
+                "-inducing-init kmeans is incompatible with -tasks "
+                "(centroids would average the integer task-id column); "
+                "use random or first"
+            )
+
+    n_extensions = sum(
+        [args.pitc_block is not None, args.warp > 0, bool(args.classify),
+         bool(args.poisson), bool(args.binomial), args.negbin is not None,
+         bool(args.ordinal), args.student_t is not None]
+    )
+    _EXT_FLAGS = ("-pitc-block/-warp/-classify/-poisson/-binomial/-negbin/"
+                  "-ordinal/-student-t")
+    if n_extensions > 1:
+        raise SystemExit(
+            f"choose at most one of {_EXT_FLAGS.replace('/', ' / ')}"
+        )
+    if args.loo and not args.exact:
+        # sparse LOO (models/loo.py) trains through the device L-BFGS
+        if args.trainer != "device":
+            raise SystemExit(
+                "-loo needs -exact (dense) or -trainer device (sparse "
+                "FITC LOO, models/loo.py)"
+            )
+        if args.block_size is not None:
+            raise SystemExit(
+                "-loo needs the materialized cross-covariance; drop "
+                "-block-size"
+            )
+        if n_extensions:
+            raise SystemExit(
+                f"-loo is regression-only; drop {_EXT_FLAGS}"
+            )
+        if args.polish:
+            raise SystemExit(
+                "-polish re-optimizes the evidence and would undo a "
+                "-loo fit"
+            )
+    if args.exact:
+        if n_extensions:
+            raise SystemExit(f"-exact is regression-only; drop {_EXT_FLAGS}")
+        if args.block_size is not None:
+            raise SystemExit("-exact is dense by definition; drop "
+                             "-block-size (use the sparse engine to stream)")
+        if args.trainer == "sharded" or args.devices is not None:
+            raise SystemExit("-exact trains on one device (dense chol); "
+                             "drop -trainer sharded/-devices")
+        if args.checkpoint or args.resume:
+            raise SystemExit("-exact training is seconds-scale; "
+                             "-checkpoint/-resume are not supported")
+        if args.polish:
+            raise SystemExit("-polish re-optimizes the sparse objective "
+                             "and would undo an -exact fit")
+        if args.log_het_sked is not None or args.multiscale:
+            raise SystemExit("-log-het-sked/-multiscale are per-inducing-"
+                             "point se_fat options; -exact has no inducing "
+                             "points")
+        if args.cg:
+            if args.loo:
+                raise SystemExit("-loo's closed form needs the dense "
+                                 "factor; drop -cg (or drop -loo)")
+            if args.restarts > 1:
+                raise SystemExit(
+                    "-cg has no cheap exact-evidence VALUE to rank "
+                    "restarts by (models/iterative.py scope note); run "
+                    "separate -seed fits instead"
+                )
+        elif n > 20000:
+            raise SystemExit(
+                f"-exact is O(n^3): {n} rows is past the 20000-row cap; "
+                "use the sparse engine (-n-inducing/-block-size) or "
+                "-exact -cg (iterative exact)"
+            )
+    elif args.cg:
+        raise SystemExit("-cg modifies -exact; add -exact (the sparse "
+                         "engine has no CG path)")
+    if n_extensions and args.trainer == "host":
+        raise SystemExit(
+            f"{_EXT_FLAGS} require -trainer "
+            "device|sharded (they train via the device-resident packed "
+            "objective)"
+        )
+    if n_extensions and args.polish:
+        raise SystemExit(
+            "-polish re-optimizes the FITC regression objective and would "
+            f"undo a {_EXT_FLAGS} fit — not "
+            "supported together"
+        )
+    if n_extensions and args.devices is not None and "x" in str(args.devices):
+        raise SystemExit(
+            f"{_EXT_FLAGS} support 1-D "
+            "data-parallel meshes only (-devices N)"
+        )
+    if args.student_t is not None:
+        if args.student_t <= 2.0:
+            raise SystemExit(
+                "-student-t NU needs NU > 2 (finite noise variance for "
+                "the moment-matched predictive; the library API accepts "
+                "any NU > 0)"
+            )
+        if args.checkpoint or args.resume:
+            raise SystemExit(
+                "-student-t alternates EM rounds whose scale weights are "
+                "not in the device checkpoint — -checkpoint/-resume are "
+                "not supported (re-run the fit)"
+            )
+
+
+def _refuse_not_ported(args):
+    """Exit naming the ROADMAP.md item of the first flag whose module is
+    not ported yet."""
+    for attr, flag, item in _NOT_PORTED:
+        value = getattr(args, attr)
+        if value is None or value is False or (attr == "warp"
+                                               and value <= 0):
+            continue
+        raise _not_ported(flag, item)
+    if args.trainer == "sharded":
+        raise _not_ported("-trainer sharded", 13)
+
+
+def cmd_train(args, dev) -> int:
+    fam = _family(args)
+    from .kernels.base import kernel_with
+    from .models import calc_stats
+    from .optim import Bailout, train
+
+    if args.resume and args.checkpoint is None:
+        raise SystemExit("-resume requires -checkpoint FILE")
+    data = read_samples(sys.stdin)
+    if args.binomial:
+        # binomial rows are x..., trials, successes (flag help)
+        if data.shape[1] < 3:
+            raise SystemExit(
+                "-binomial training data needs at least 3 columns "
+                "(x..., trials, successes)"
+            )
+        data = np.delete(data, -2, axis=1)
+    if data.shape[1] < 2:
+        raise SystemExit("training data needs at least 2 columns (x..., y)")
+    inputs, targets = data[:, :-1], data[:, -1]
+    n, big_dim = inputs.shape
+    _check_flags(args, n, big_dim, inputs)
+
+    target_mean = float(targets.mean())
+    targets = targets - target_mean
+    target_variance = float(targets @ targets / n)
+    if args.verbose:
+        print(f"target variance: {target_variance:.5f}", file=sys.stderr)
+
+    input_means = inputs.mean(axis=0)
+    # reference parity: "stddev" = sqrt(sum of squared deviations)
+    # (bin/ocaml_gpr.ml:262)
+    input_stddevs = np.sqrt(((inputs - input_means) ** 2).sum(axis=0))
+    input_stddevs = np.where(input_stddevs == 0.0, 1.0, input_stddevs)
+    inputs = (inputs - input_means) / input_stddevs
+
+    n_inducing = min(args.n_inducing, n)
+    seed = args.seed if args.seed is not None else int(time.time_ns() % (2**31))
+    if args.restarts > 1 and (args.checkpoint or args.resume):
+        raise SystemExit("-restarts > 1 is incompatible with "
+                         "-checkpoint/-resume (single-trajectory state)")
+    if args.resume and args.trainer == "sharded":
+        raise SystemExit("-resume is not supported with -trainer sharded "
+                         "(device-sharded state is mesh-layout dependent)")
+    if args.devices is not None and args.trainer != "sharded":
+        raise SystemExit("-devices requires -trainer sharded")
+    _refuse_not_ported(args)
+
+    log_sf2 = 2.0 * math.log(args.amplitude)
+    X = torch.tensor(inputs, dtype=F64, device=dev)
+    y = torch.tensor(targets, dtype=F64, device=dev)
+
+    if fam.name == "se_fat":
+        def build_params(rng):
+            """Per-restart kernel params: the projection draw is the random
+            part (reference init, bin/ocaml_gpr.ml:272-300)."""
+            if args.dim_red is not None:
+                d = min(big_dim, args.dim_red)
+                tproj = rng.uniform(-1.0, 1.0, (big_dim, d)) / big_dim
+            else:
+                d = big_dim
+                tproj = None
+            return fam(
+                d, log_sf2, tproj=tproj,
+                log_hetero_skedasticity=(
+                    np.full((n_inducing,), args.log_het_sked)
+                    if args.log_het_sked is not None else None
+                ),
+                log_multiscales_m05=(
+                    np.zeros((n_inducing, d)) if args.multiscale else None
+                ),
+                device=dev, dtype=F64,
+            )
+    else:
+        # -kernel NAME: the family's default hyper init; -amplitude maps
+        # onto log_sf2 where the family has a signal-variance hyper
+        if (args.dim_red is not None or args.log_het_sked is not None
+                or args.multiscale):
+            raise SystemExit(
+                "-dim-red/-log-het-sked/-multiscale apply to the se_fat "
+                f"kernel only (got -kernel {fam.name})"
+            )
+        has_sf2 = "log_sf2" in fam.param_names
+        if args.amplitude != 1.0 and not has_sf2:
+            raise SystemExit(
+                f"-amplitude needs a signal-variance hyper; -kernel "
+                f"{fam.name} has none"
+            )
+
+        def build_params(rng):
+            # the JAX package seeds its key with this draw
+            gen = torch.Generator(dev).manual_seed(int(rng.integers(2**31)))
+            p = fam.default_params(X, n_inducing, gen)
+            if has_sf2 and args.amplitude != 1.0:
+                p = kernel_with(p, {"log_sf2": torch.tensor(
+                    log_sf2, dtype=F64, device=dev)})
+            return p
+
+    got_signal = {"flag": False}
+
+    def on_sigint(signum, frame):
+        got_signal["flag"] = True
+
+    old_handler = signal.signal(signal.SIGINT, on_sigint)
+
+    last_report = {"eval": 0.0, "grad": 0.0}
+
+    def stats_line(trained):
+        st = calc_stats(trained)
+        return (
+            f"MSLL={float(st.msll):7.7f} SMSE={float(st.smse):7.7f} "
+            f"MAD={float(st.mad):7.7f} MAXAD={float(st.maxad):7.7f}"
+        )
+
+    def bailout(iter):
+        if got_signal["flag"]:
+            raise Bailout
+        if args.max_iter is not None and iter > args.max_iter:
+            raise Bailout
+
+    def report_trained_model(iter, trained):
+        bailout(iter)
+        if args.verbose and time.time() - last_report["eval"] > 1.0:
+            last_report["eval"] = time.time()
+            print(f"iter {iter:4d}: {stats_line(trained)}", file=sys.stderr,
+                  flush=True)
+
+    def report_gradient_norm(iter, norm):
+        bailout(iter)
+        if args.verbose and time.time() - last_report["grad"] > 1.0:
+            last_report["grad"] = time.time()
+            print(f"iter {iter:4d}: |gradient|={norm:.5f}", file=sys.stderr,
+                  flush=True)
+
+    if args.trainer != "host":
+        trained = _train_on_device(args, fam, dev, X, y, n_inducing, seed,
+                                   build_params, got_signal, old_handler)
+        trained = _apply_polish(args, X, y, trained)
+        if args.verbose:
+            print(f"result: {stats_line(trained)}", file=sys.stderr)
+        _write_artifact(args, fam, trained, target_mean, input_means,
+                        input_stddevs)
+        return 0
+
+    try:
+        trained = None
+        for r in range(max(1, args.restarts)):
+            seed_r = seed + r
+            params_r = build_params(np.random.default_rng(seed_r))
+            z_r = (
+                None if args.inducing_init == "random"
+                else _choose_inducing(args, seed_r, params_r, X, n_inducing)
+            )
+            cand = train(
+                fam, X, y,
+                kernel_params=params_r,
+                sigma2=args.sigma2,
+                inducing=z_r,
+                n_rand_inducing=n_inducing,
+                variational=True,  # Variational_FIC, like the CLI
+                block_size=args.block_size,
+                step=args.step, tol=args.tol, epsabs=args.eps,
+                max_iter=args.max_iter,
+                report_trained_model=report_trained_model,
+                report_gradient_norm=report_gradient_norm,
+                generator=torch.Generator(dev).manual_seed(seed_r),
+                checkpoint_path=args.checkpoint,
+                resume=args.resume,
+            )
+            # NaN-safe best: a diverged draw (NaN evidence) must never beat
+            # a finite one — every float comparison against NaN is False
+            def _key(t):
+                l = float(t.l)
+                return (math.isfinite(l), l if math.isfinite(l) else 0.0)
+
+            if trained is None or _key(cand) > _key(trained):
+                trained = cand
+            if args.verbose and args.restarts > 1:
+                print(f"restart {r}: log evidence {float(cand.l):.3f}"
+                      f" (best {float(trained.l):.3f})", file=sys.stderr)
+            if got_signal["flag"]:
+                break  # SIGINT: keep the best model found so far
+    finally:
+        signal.signal(signal.SIGINT, old_handler)
+
+    trained = _apply_polish(args, X, y, trained)
+    if args.verbose:
+        print(f"result: {stats_line(trained)}", file=sys.stderr)
+
+    _write_artifact(args, fam, trained, target_mean, input_means,
+                    input_stddevs)
+    return 0
+
+
+def _apply_polish(args, X, y, trained):
+    """-polish N: f64 finishing step (optim.polish) after any trainer.
+
+    Reruns the same mean-NLL objective in f64 from the trained hypers (a
+    row subsample of N bounds the cost; N >= n uses all rows) and rebuilds
+    the predictor state from the polished hypers.  The reference never
+    needs this (GSL BFGS2 is f64 end to end); the CLI trains in f64 as well,
+    so here it is one more f64 L-BFGS phase on the subsample.
+    """
+    if not args.polish:
+        return trained
+    from .models.streaming import streaming_trained
+    from .optim import make_pack
+    from .optim.polish import polish
+    from .optim.train import TrainResult
+
+    pack = make_pack(trained.kernel_params, trained.inducing,
+                     float(trained.model.sigma2))
+    p_f, z_f, s2_f, _, rep = polish(
+        X, y, pack, pack.x0, variational=True,
+        subsample=min(args.polish, X.shape[0]),
+        max_iter=args.max_iter if args.max_iter is not None else 40,
+        epsabs=args.eps / max(1, min(args.polish, X.shape[0])),
+    )
+    if args.verbose:
+        print(f"polish (f64, {rep.n_rows} rows): mean-NLL {rep.f0:.6f} -> "
+              f"{rep.f:.6f}, |grad| {rep.gnorm0:.2e} -> {rep.gnorm:.2e} "
+              f"({rep.n_iter} iters, {rep.wall_s:.0f}s)", file=sys.stderr)
+    new = streaming_trained(
+        p_f, z_f, s2_f, X, y, variational=True,
+        block_size=args.block_size or 8192,
+    )
+    return TrainResult(new, p_f, z_f, s2_f)
+
+
+def _choose_inducing(args, seed, params, X, n_inducing):
+    """-inducing-init dispatch shared by every trainer path; the random
+    draws come from ``torch.Generator`` seeded with ``seed`` (where the JAX
+    package takes ``jax.random.PRNGKey(seed)``)."""
+    from .models.fitc import (
+        choose_kmeans_inputs,
+        choose_n_first_inputs,
+        choose_n_random_inputs,
+    )
+
+    generator = torch.Generator(X.device).manual_seed(seed)
+    if args.inducing_init == "kmeans":
+        return choose_kmeans_inputs(generator, params, X, n_inducing)
+    if args.inducing_init == "first":
+        return choose_n_first_inputs(params, X, n_inducing)
+    return choose_n_random_inputs(generator, params, X, n_inducing)
+
+
+def _write_artifact(args, fam, trained, target_mean, input_means,
+                    input_stddevs):
+    from .io.checkpoint import artifact_from_trained, save_model
+
+    save_model(args.model, artifact_from_trained(
+        fam, trained, target_mean=target_mean, input_means=input_means,
+        input_stddevs=input_stddevs, kernel_params=trained.kernel_params,
+    ))
+
+
+def _train_on_device(args, fam, dev, X, y, n_inducing, seed, build_params,
+                     got_signal, old_handler):
+    """-trainer device: the device-resident chunked L-BFGS
+    (optim.lbfgs_device.fit) at the CLI surface.  Same model (variational
+    FIC), same artifact schema as the host loop, the mean-NLL objective.
+    -eps keeps the host trainer's TOTAL-gradient meaning: mean |g| < eps/n
+    <=>  total |g| < eps, so the same flag value stops both trainers at the
+    same point.  SIGINT stops after the in-flight chunk and keeps the
+    incumbent (the device L-BFGS is monotone, so the incumbent IS the best
+    model so far).
+    """
+    from .models.fitc import calc_model, calc_trained
+    from .optim import Bailout, make_pack
+    from .optim.lbfgs_device import fit, fit_restarts
+    from .optim.train import TrainResult
+
+    max_iter = args.max_iter if args.max_iter is not None else 100
+
+    def start(r):
+        params = build_params(np.random.default_rng(seed + r))
+        z = _choose_inducing(args, seed + r, params, X, n_inducing)
+        return params, z
+
+    params0, z0 = start(0)
+    pack = make_pack(params0, z0, args.sigma2)
+
+    common = dict(
+        variational=True, step=args.step, tol=args.tol,
+        epsabs=args.eps / X.shape[0], max_iter=max_iter,
+    )
+    # -loo (sparse): validated upstream to the device trainer only
+    loo_kw = {"objective": "loo"} if args.loo else {}
+
+    last_state = {"st": None}
+
+    def on_chunk(st):
+        last_state["st"] = st
+        if args.checkpoint is not None:
+            from .io.resume import save_device_checkpoint
+
+            save_device_checkpoint(args.checkpoint, st)
+        if args.verbose:
+            print(
+                f"iter {int(st.n_iter):4d}: f={float(st.f):.6f} "
+                f"|gradient|={float(torch.linalg.norm(st.g)):.5f} "
+                f"evals={int(st.n_evals)}", file=sys.stderr, flush=True,
+            )
+        if got_signal["flag"]:
+            raise Bailout
+
+    try:
+        if args.restarts > 1:
+            x0s = [pack.x0] + [
+                make_pack(*start(r), args.sigma2).x0
+                for r in range(1, args.restarts)
+            ]
+            p_f, z_f, s2_f, st, probe_fs = fit_restarts(
+                X, y, pack, x0s,
+                streaming_block_size=args.block_size, **common, **loo_kw,
+            )
+            if args.verbose:
+                print(f"restart probes: "
+                      f"{[round(float(f), 4) for f in probe_fs]}",
+                      file=sys.stderr)
+        else:
+            init_state = None
+            if args.resume and os.path.exists(args.checkpoint):
+                from .io.resume import load_device_checkpoint
+
+                init_state = load_device_checkpoint(args.checkpoint,
+                                                    device=dev)
+                if init_state.x.shape != pack.x0.shape:
+                    raise SystemExit(
+                        "checkpoint hyper vector does not match this "
+                        "configuration — resume requires the same "
+                        "model/data setup"
+                    )
+            try:
+                p_f, z_f, s2_f, st = fit(
+                    X, y, pack,
+                    streaming_block_size=args.block_size,
+                    init_state=init_state, state_callback=on_chunk,
+                    **common, **loo_kw,
+                )
+            except Bailout:
+                p_f, z_f, s2_f = pack.unpack(last_state["st"].x)
+    finally:
+        signal.signal(signal.SIGINT, old_handler)
+
+    if args.block_size is not None:
+        from .models.streaming import streaming_trained
+
+        trained = streaming_trained(
+            p_f, z_f, s2_f, X, y, variational=True,
+            block_size=args.block_size,
+        )
+    else:
+        model = calc_model(p_f, X, z_f, s2_f, variational=True,
+                           factorization="chol")
+        trained = calc_trained(model, y)
+    return TrainResult(trained, p_f, z_f, s2_f)
+
+
+def cmd_test(args, dev) -> int:
+    from .convert import params_from_artifact
+    from .io.checkpoint import load_model
+    from .models.predict import (
+        CoVariancePredictor,
+        MeanPredictor,
+        predict_means,
+        predict_variances,
+    )
+
+    art, extra = load_model(args.model)
+    data = read_samples(sys.stdin)
+    big_dim = art.input_means.shape[0]
+    if data.shape[1] != big_dim:
+        raise SystemExit(
+            f"incompatible dimension of inputs ({data.shape[1]}), expected "
+            f"{big_dim}"
+        )
+    for key, item in _NOT_PORTED_EXTRAS:
+        if key in extra:
+            raise _not_ported(f"serving a {key} artifact", item)
+    inputs = (data - art.input_means) / art.input_stddevs
+    X = torch.tensor(inputs, dtype=F64, device=dev)
+    kernel, z, sigma2 = params_from_artifact(art, device=dev, dtype=F64)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=F64, device=dev)
+
+    mp = MeanPredictor(z=z, coeffs=t(art.coeffs))
+    with torch.no_grad():
+        means = predict_means(kernel, mp, X).cpu().numpy() + art.target_mean
+        if args.with_stddev:
+            cvp = CoVariancePredictor(z=z, chol_km=t(art.chol_km),
+                                      r_mat=t(art.r_mat))
+            variances = predict_variances(
+                kernel, cvp, X, sigma2, predictive=args.predictive
+            ).cpu().numpy()
+            lines = [f"{mean:f},{math.sqrt(max(var, 0.0)):f}\n"
+                     for mean, var in zip(means, variances)]
+        else:
+            lines = [f"{mean:f}\n" for mean in means]
+    sys.stdout.write("".join(lines))
+    return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    dev = _device()
+    try:
+        if args.cmd == "train":
+            return cmd_train(args, dev)
+        return cmd_test(args, dev)
+    except FileNotFoundError as e:
+        raise SystemExit(f"cannot open model file: {e.filename}")
+    except NotImplementedError as e:
+        raise SystemExit(str(e))
+    except FloatingPointError as e:
+        raise SystemExit(
+            f"training failed: {e} (check inputs for NaN/inf values)"
+        )
+    except BrokenPipeError:
+        # downstream closed the pipe (e.g. | head) — exit quietly, the
+        # POSIX-tool convention
+        try:
+            sys.stdout.close()
+        except Exception:  # noqa: BLE001
+            pass
+        os._exit(0)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -2,7 +2,7 @@
 
 Both entries return ``(kernel module, z, sigma2)`` on an explicit device and
 dtype, ready for the streaming functions of ``gpr_tpu_torch.models``.
-Only the ``se_iso`` family is ported.
+The ``se_iso`` and ``se_fat`` families are ported.
 """
 
 from __future__ import annotations
@@ -13,25 +13,28 @@ import numpy as np
 import torch
 
 from .io.checkpoint import ModelArtifact
-from .kernels import SeIso, resolve_family
+from .kernels import resolve_family
 
 
-def from_jax_params(params: Mapping[str, np.ndarray], z, sigma2, *, device,
-                    dtype):
-    """``params`` maps field names of the JAX ``SeIso.Params`` to arrays
-    (``{"log_ell": ..., "log_sf2": ...}``); ``z`` is the (m, d) inducing
-    representation and ``sigma2`` the noise variance."""
+def from_jax_params(params: Mapping, z, sigma2, *, device, dtype,
+                    family="se_iso"):
+    """``params`` maps field names of the JAX family's ``Params`` to arrays
+    (se_iso: ``{"log_ell": ..., "log_sf2": ...}``), static fields to their
+    values (se_fat's ``d``) and an option that is off to None or nothing;
+    ``family`` is the family's name or kernel class; ``z`` is the (m, dz)
+    inducing representation and ``sigma2`` the noise variance."""
+    cls = resolve_family(family) if isinstance(family, str) else family
     names = set(params)
-    if names != {"log_ell", "log_sf2"}:
+    fields = set(cls.param_names) | set(cls.static_names)
+    required = fields - set(cls.optional_names)
+    if not required <= names <= fields:
         raise ValueError(
-            f"expected se_iso parameters log_ell and log_sf2, got "
-            f"{sorted(names)}"
+            f"expected {cls.name} parameters {sorted(required)} (optional: "
+            f"{sorted(cls.optional_names)}), got {sorted(names)}"
         )
-    kernel = SeIso(
-        float(np.asarray(params["log_ell"])),
-        float(np.asarray(params["log_sf2"])),
-        device=device, dtype=dtype,
-    )
+    kw = {name: v if v is None or name in cls.static_names else np.asarray(v)
+          for name, v in params.items()}
+    kernel = cls(**kw, device=device, dtype=dtype)
     z_t = torch.tensor(np.asarray(z), dtype=dtype, device=device)
     s2_t = torch.as_tensor(float(np.asarray(sigma2)), dtype=dtype,
                            device=device)
@@ -40,6 +43,6 @@ def from_jax_params(params: Mapping[str, np.ndarray], z, sigma2, *, device,
 
 def params_from_artifact(art: ModelArtifact, *, device, dtype):
     """:func:`from_jax_params` for an artifact of ``io.checkpoint``."""
-    resolve_family(art.family_name)
     return from_jax_params(art.kernel_params, art.inducing, art.sigma2,
-                           device=device, dtype=dtype)
+                           device=device, dtype=dtype,
+                           family=art.family_name)

@@ -3,10 +3,12 @@
 The counterpart of ``gpr_tpu/io/checkpoint.py``, with the same schema
 (``SCHEMA_VERSION = 1``), so an artifact written by either package loads in
 the other: a flat npz with a json manifest, every leaf a named numpy array.
-Only the ``se_iso`` family is ported; its parameters are the flat arrays
-``param__log_ell`` and ``param__log_sf2``.  ``artifact_from_trained`` takes
-tensors to the host; ``gpr_tpu_torch.convert.params_from_artifact`` turns
-an artifact back into tensors.
+A kernel's parameters are a dict by field name: its arrays go to
+``param__<name>``, its static fields (se_fat's ``d``) and the options that
+are off (None) to the manifest's ``params_static``, as the JAX package's
+``_params_to_arrays`` writes them.  ``artifact_from_trained`` takes tensors
+to the host; ``gpr_tpu_torch.convert.params_from_artifact`` turns an
+artifact back into tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..kernels import resolve_family
+from ..kernels.base import hyper_fields, static_fields
 
 SCHEMA_VERSION = 1
 
@@ -27,7 +30,8 @@ class ModelArtifact:
     """Everything needed to serve means and (co)variances."""
 
     family_name: str
-    kernel_params: dict  # name -> np.ndarray, e.g. {"log_ell": ..., ...}
+    # field name -> np.ndarray, or the static value (an int or None)
+    kernel_params: dict
     inducing: np.ndarray  # inducing representation (m, dz)
     coeffs: np.ndarray  # (m,)
     chol_km: np.ndarray  # (m, m) upper
@@ -40,6 +44,18 @@ class ModelArtifact:
     @property
     def family(self):
         return resolve_family(self.family_name)
+
+
+def _params_to_arrays(params: dict) -> tuple[dict, dict]:
+    """(arrays, static) of a kernel's parameter dict: ints and None go to
+    the manifest, everything else is an array."""
+    arrays, static = {}, {}
+    for name, v in params.items():
+        if v is None or (isinstance(v, int) and not hasattr(v, "shape")):
+            static[name] = v
+        else:
+            arrays[name] = np.asarray(v)
+    return arrays, static
 
 
 def artifact_from_trained(family, trained, *, target_mean=0.0,
@@ -57,8 +73,11 @@ def artifact_from_trained(family, trained, *, target_mean=0.0,
     d = z.shape[1] if z.ndim == 2 else 1
     return ModelArtifact(
         family_name=family.name,
-        kernel_params={name: host(getattr(kernel_params, name))
-                       for name in type(kernel_params).param_names},
+        kernel_params={
+            **static_fields(kernel_params),
+            **{name: None if t is None else host(t)
+               for name, t in hyper_fields(kernel_params).items()},
+        },
         inducing=host(z),
         coeffs=host(trained.coeffs),
         chol_km=host(model.inducing.chol_km),
@@ -74,13 +93,13 @@ def artifact_from_trained(family, trained, *, target_mean=0.0,
 
 def save_model(path: str, art: ModelArtifact, extra_arrays: dict | None = None):
     resolve_family(art.family_name)
-    params = {k: np.asarray(v) for k, v in art.kernel_params.items()}
+    params, params_static = _params_to_arrays(art.kernel_params)
     manifest = {
         "schema_version": SCHEMA_VERSION,
         "family": art.family_name,
         "sigma2": float(art.sigma2),
         "target_mean": float(art.target_mean),
-        "params_static": {},
+        "params_static": params_static,
         "params_arrays": sorted(params),
         "extra": sorted(extra_arrays) if extra_arrays else [],
     }
@@ -113,16 +132,12 @@ def load_model(path: str) -> tuple[ModelArtifact, dict]:
                 f"supported {SCHEMA_VERSION}"
             )
         resolve_family(manifest["family"])
-        if manifest["params_static"]:
-            raise NotImplementedError(
-                f"static kernel parameters {sorted(manifest['params_static'])}"
-                f" belong to families not ported yet"
-            )
         art = ModelArtifact(
             family_name=manifest["family"],
             kernel_params={
-                name: z[f"param__{name}"]
-                for name in manifest["params_arrays"]
+                **manifest["params_static"],
+                **{name: z[f"param__{name}"]
+                   for name in manifest["params_arrays"]},
             },
             inducing=z["inducing"],
             coeffs=z["coeffs"],

@@ -26,6 +26,33 @@ def sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.clamp(d2, min=0.0)
 
 
+def hyper_fields(kernel) -> dict:
+    """The kernel's hyper fields by name, in the sorted order of the JAX
+    ``Params`` keys: a tensor each, or None where an option is off."""
+    return {name: getattr(kernel, name) for name in type(kernel).param_names}
+
+
+def static_fields(kernel) -> dict:
+    """The kernel's static (non-tensor) fields by name, e.g. se_fat's ``d``."""
+    return {name: getattr(kernel, name) for name in type(kernel).static_names}
+
+
+def hyper_leaves(kernel) -> tuple[tuple[str, ...], tuple[torch.Tensor, ...]]:
+    """(names, tensors) of the fields that are not None, in sorted order:
+    the positional layout of the streaming VJP's hyper arguments and
+    accumulators, and of a packed vector's kernel slice."""
+    items = [(n, t) for n, t in hyper_fields(kernel).items() if t is not None]
+    return tuple(n for n, _ in items), tuple(t for _, t in items)
+
+
+def kernel_with(kernel, values: dict):
+    """A view of ``kernel`` (``type(kernel).of``) whose hyper fields named in
+    ``values`` are those tensors; the other fields and the static ones stay
+    as they are."""
+    fields = {**hyper_fields(kernel), **values}
+    return type(kernel).of(**static_fields(kernel), **fields)
+
+
 def sqdist_cotangent_reduce(c: torch.Tensor, X: torch.Tensor,
                             Z: torch.Tensor):
     """(z_bar, c_dot_d2, c_sum) for a (bs, m) cotangent ``c`` of

@@ -21,6 +21,8 @@ class SeIso(nn.Module):
     name = "se_iso"
     #: hyper fields in the order of the JAX ``Params`` pytree's sorted keys
     param_names = ("log_ell", "log_sf2")
+    static_names = ()
+    optional_names = ()
     learn_inducing_default = True
 
     def __init__(self, log_ell: float = 0.0, log_sf2: float = 0.0, *,

@@ -3,13 +3,19 @@
 
 ``_forward_scan`` and ``_backward_scan`` are the plain blocked loops that
 the CUDA kernels of ``ops/fused_stats.py`` are checked against, and the
-``impl="reference"`` path of ``models/streaming.py``.  ``StreamStatsFn`` is
-``make_stream_stats_cv``: a ``torch.autograd.Function`` whose forward runs
-the forward-statistics kernel (CUDA tensors) or ``_forward_scan``, and whose
-backward runs the backward kernel or ``_backward_scan`` (through the
-wrappers and twins of ``ops/fused_stats.py``).  It saves only its
-inputs: every Knm tile is recomputed in the backward, so nothing n x m is
-ever stored.
+``impl="reference"`` path of ``models/streaming.py`` for every kernel
+family.  ``StreamStatsFn`` is ``make_stream_stats_cv``: a
+``torch.autograd.Function`` whose forward runs the SE-iso forward-statistics
+kernel (``impl`` "fused_acc" or "fused", CUDA tensors) or ``_forward_scan``,
+and whose backward runs the SE-iso backward kernel or ``_backward_scan``.
+It saves only its inputs: every Knm tile is recomputed in the backward, so
+nothing n x m is ever stored.
+
+The kernel's hypers go in positionally, the fields that are not None in
+sorted name order (``kernels.base.hyper_leaves``), and the gradient
+accumulators are positional over them, as in the JAX package.  Each tile's
+kernel pullback is the family's ``k_cross_vjp`` where it has one, else
+autograd's (``torch.func.vjp`` of ``k_cross`` and ``k_diag``).
 
 The backward is the JAX package's ``bwd_variant="ug"`` schedule: the Gram
 cotangent is symmetrized once, UG = U^-1 (G-bar + G-bar') is formed once,
@@ -21,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..kernels.base import hyper_leaves, kernel_with
 from ..numerics.linalg import matmul, rows_sqr_norm
 
 
@@ -109,8 +116,9 @@ def _forward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, acc_dtype):
 def _backward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, cot, acc_dtype,
                    need_y=True):
     """Pull the statistic cotangents ``cot`` = (G-bar, u-bar, lds-bar,
-    yiy-bar, isr-bar) back through the blocked rows:
-    (log_ell_bar, log_sf2_bar, z_bar, u_inv_bar, sigma2_bar) in
+    yiy-bar, isr-bar) back through the blocked rows: the cotangents of the
+    kernel's hyper fields that are not None (sorted order; for SE-iso
+    log_ell_bar, log_sf2_bar), then z_bar, u_inv_bar and sigma2_bar, in
     ``acc_dtype``, and the (nb, B) y cotangent (None unless ``need_y``).
 
     The gradient carries are compensated (hi, lo) pairs when the
@@ -125,15 +133,26 @@ def _backward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, cot, acc_dtype,
     u_inv_t = u_inv.T
     ug = matmul(u_inv, gsym)
     comp = acc_dtype == torch.float32
-    carry = _zero_carry([(), (), tuple(z.shape), tuple(u_inv.shape), ()],
+    names, hypers = hyper_leaves(kernel)
+    carry = _zero_carry([tuple(h.shape) for h in hypers]
+                        + [tuple(z.shape), tuple(u_inv.shape), ()],
                         acc_dtype, z.device)
+    hand_pull = getattr(kernel, "k_cross_vjp", None)
     y_bar = []
     for x_b, y_b, mask_b in zip(xb, yb, maskb):
         x_b = x_b.to(dt)
         y_b = y_b.to(dt)
         mask_b = mask_b.to(dt)
-        knm = kernel.k_cross(x_b, z)
-        kd = kernel.k_diag(x_b)
+        if hand_pull is not None:
+            knm = kernel.k_cross(x_b, z)
+            kd = kernel.k_diag(x_b)
+            pull = (lambda cot, x_b=x_b, knm=knm:
+                    hand_pull(x_b, z, knm, *cot))
+        else:
+            (knm, kd), pull = torch.func.vjp(
+                lambda *leaves, x_b=x_b: _tile(kernel, names, leaves[:-1],
+                                               x_b, leaves[-1]),
+                *hypers, z)
         # gram = sum (V sqrt(is))' (V sqrt(is)): with vg = V (G-bar +
         # G-bar'), the whitened-row cotangent collapses to
         #   V-bar += is * vg,   is-bar += 1/2 rowdot(vg, V)
@@ -161,38 +180,54 @@ def _backward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, cot, acc_dtype,
         # r = kd - rowsq(V)
         vbar = vbar - 2.0 * v * r_bar[:, None]
         knm_bar = matmul(vbar, u_inv_t)
-        terms = (*kernel.k_cross_vjp(x_b, z, knm, knm_bar, r_bar),
-                 matmul(knm.T, vbar), torch.sum(s_bar_live))
+        terms = (*pull((knm_bar, r_bar)), matmul(knm.T, vbar),
+                 torch.sum(s_bar_live))
         carry = _accumulate(carry, [t.to(acc_dtype) for t in terms], comp)
     out = tuple(hi + lo if comp else hi for hi, lo in carry)
     return (*out, torch.stack(y_bar) if need_y else None)
 
 
-class StreamStatsFn(torch.autograd.Function):
-    """(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask) -> the six
-    streaming statistics of an SE-iso model, with the hand VJP.
+def _tile(kernel, names, hypers, x_b, z):
+    """(k_cross, k_diag) of one row tile for the hypers ``hypers`` (the
+    fields ``names``): the function autograd pulls back where the family
+    has no ``k_cross_vjp``."""
+    view = kernel_with(kernel, dict(zip(names, hypers)))
+    return view.k_cross(x_b, z), view.k_diag(x_b)
 
+
+class StreamStatsFn(torch.autograd.Function):
+    """(z, u_inv, sigma2, X, y, mask, *hypers) -> the six streaming
+    statistics, with the hand VJP.
+
+    ``kernel`` (whose static fields and None options the view keeps),
     ``block_size`` and ``impl`` ("fused_acc", "fused" or "reference") ride
-    along as non-tensor arguments.  The kernel impls need CUDA tensors; the
-    backward of either runs the backward kernel.  The X and mask
-    cotangents are structural zeros (None); the y cotangent is exact.
+    along as non-tensor arguments; ``hypers`` are the kernel's fields that
+    are not None, in sorted order (``kernels.base.hyper_leaves``).  The
+    kernel impls are SE-iso's and need CUDA tensors; the backward of either
+    runs the backward kernel.  The X and mask cotangents are structural
+    zeros (None); the y cotangent is exact.
     """
 
     @staticmethod
-    def forward(ctx, log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
-                block_size, impl):
+    def forward(ctx, kernel, block_size, impl, z, u_inv, sigma2, X, y, mask,
+                *hypers):
         # imported here: ops.fused_stats imports this module
         from ..ops import fused_stats
 
-        ctx.save_for_backward(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask)
+        names, _ = hyper_leaves(kernel)
+        ctx.save_for_backward(z, u_inv, sigma2, X, y, mask, *hypers)
+        ctx.kernel, ctx.names = kernel, names
         ctx.block_size, ctx.impl = block_size, impl
-        fwd = {
-            "reference": fused_stats._se_iso_stats_reference,
-            "fused_acc": fused_stats.se_iso_stream_stats_fused_acc,
-            "fused": fused_stats.se_iso_stream_stats_fused,
-        }[impl]
-        out = fwd(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
-                  block_size=block_size, acc_dtype=z.dtype)
+        if impl == "reference":
+            view = kernel_with(kernel, dict(zip(names, hypers)))
+            xb, yb, maskb = _pad_blocks(X, y, mask, block_size)
+            out = _forward_scan(view, z, u_inv, sigma2, xb, yb, maskb,
+                                z.dtype)
+        else:
+            fwd = {"fused_acc": fused_stats.se_iso_stream_stats_fused_acc,
+                   "fused": fused_stats.se_iso_stream_stats_fused}[impl]
+            out = fwd(*hypers, z, u_inv, sigma2, X, y, mask,
+                      block_size=block_size, acc_dtype=z.dtype)
         ctx.mark_non_differentiable(out[-1])
         return out
 
@@ -201,19 +236,23 @@ class StreamStatsFn(torch.autograd.Function):
     def backward(ctx, gbar, ubar, lds_bar, yiy_bar, isr_bar, _n_bar):
         from ..ops import fused_stats
 
-        log_ell, log_sf2, z, u_inv, sigma2, X, y, mask = ctx.saved_tensors
-        need_y = ctx.needs_input_grad[6]
-        bwd = (fused_stats._se_iso_bwd_reference if ctx.impl == "reference"
-               else fused_stats.se_iso_stream_bwd_fused)
-        *grads, y_bar = bwd(
-            log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
-            gbar, ubar, lds_bar, yiy_bar, isr_bar,
-            block_size=ctx.block_size, acc_dtype=z.dtype, need_y=need_y,
-        )
-        lel, lsf, zb, uib, s2b = (
+        z, u_inv, sigma2, X, y, mask, *hypers = ctx.saved_tensors
+        need_y = ctx.needs_input_grad[7]
+        cot = (gbar, ubar, lds_bar, yiy_bar, isr_bar)
+        if ctx.impl == "reference":
+            view = kernel_with(ctx.kernel, dict(zip(ctx.names, hypers)))
+            xb, yb, maskb = _pad_blocks(X, y, mask, ctx.block_size)
+            *grads, y_bar = _backward_scan(view, z, u_inv, sigma2, xb, yb,
+                                           maskb, cot, z.dtype, need_y)
+            if y_bar is not None:
+                y_bar = y_bar.reshape(-1)[:X.shape[0]]
+        else:
+            *grads, y_bar = fused_stats.se_iso_stream_bwd_fused(
+                *hypers, z, u_inv, sigma2, X, y, mask, *cot,
+                block_size=ctx.block_size, acc_dtype=z.dtype, need_y=need_y)
+        *h_bars, zb, uib, s2b = (
             g.to(like.dtype)
-            for g, like in zip(grads, (log_ell, log_sf2, z, u_inv, sigma2))
-        )
+            for g, like in zip(grads, (*hypers, z, u_inv, sigma2)))
         if y_bar is not None:
             y_bar = y_bar.to(y.dtype)
-        return lel, lsf, zb, uib, s2b, None, y_bar, None, None, None
+        return (None, None, None, zb, uib, s2b, None, y_bar, None, *h_bars)

@@ -10,11 +10,16 @@ The pass runs one of three implementations (``impl``):
 
 * ``"fused_acc"`` -- the CUDA kernel behind
   :func:`gpr_tpu_torch.ops.se_iso_stream_stats_fused_acc` (the default for
-  f32 CUDA tensors; the counterpart of the JAX package's ``impl="pallas"``);
+  an SE-iso kernel on f32 CUDA tensors; the counterpart of the JAX
+  package's ``impl="pallas"``);
 * ``"fused"`` -- the per-block-partials kernel behind
   :func:`gpr_tpu_torch.ops.se_iso_stream_stats_fused`;
 * ``"reference"`` -- the plain blocked loop of ``stream_grad._forward_scan``
-  (the default for CPU tensors and for f64 on the card).
+  (the default for every other family, for CPU tensors and for f64 on the
+  card, as the JAX package's default ``impl="scan"``).
+
+The two kernel impls compute the SE-iso kernel only: asked for with
+another family they raise, as the JAX package's Pallas path does.
 
 Gradients (``grad_impl``): ``"custom"`` (the default) is the hand VJP of
 ``stream_grad.StreamStatsFn``, whose backward runs the backward kernel
@@ -33,6 +38,7 @@ import dataclasses
 
 import torch
 
+from ..kernels.base import hyper_leaves
 from ..numerics.linalg import (
     cholesky_upper,
     inv_tri_upper,
@@ -61,7 +67,7 @@ class StreamStats:
     n: torch.Tensor  # number of (real) rows
 
 
-def _resolve_impl(impl, X, grad_impl="custom"):
+def _resolve_impl(impl, X, kernel, grad_impl="custom"):
     if grad_impl not in GRAD_IMPLS:
         raise ValueError(
             f"unknown grad_impl {grad_impl!r}; valid: {GRAD_IMPLS}"
@@ -75,13 +81,19 @@ def _resolve_impl(impl, X, grad_impl="custom"):
                 f"impl={impl!r} needs grad_impl='custom'"
             )
         return "reference"
+    se_iso = getattr(kernel, "name", None) == "se_iso"
     if impl is None:
-        # the kernels compute in f32: f64 on the card (the polish, the
-        # parity twin) runs the plain loop
+        # the kernels compute SE-iso in f32: f64 on the card (the polish,
+        # the parity twin) and the other families run the plain loop
         f32_cuda = X.is_cuda and X.dtype == torch.float32
-        return "fused_acc" if f32_cuda else "reference"
+        return "fused_acc" if f32_cuda and se_iso else "reference"
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; valid: {IMPLS}")
+    if impl != "reference" and not se_iso:
+        raise ValueError(
+            f"impl={impl!r} supports the se_iso kernel only, got "
+            f"{getattr(kernel, 'name', kernel)}; use impl='reference'"
+        )
     if impl != "reference" and not X.is_cuda:
         raise ValueError(
             f"impl={impl!r} is a CUDA kernel and X is on {X.device}; use "
@@ -102,7 +114,7 @@ def stream_stats(kernel, inducing: InducingState, sigma2, X, y, *,
     to the kernel's hypers, ``z``, ``sigma2`` and ``y`` (see the module
     docstring for ``grad_impl``).
     """
-    impl = _resolve_impl(impl, X, grad_impl)
+    impl = _resolve_impl(impl, X, kernel, grad_impl)
     if torch.as_tensor(sigma2).ndim:
         raise NotImplementedError(
             "per-row sigma2 is not ported yet (ROADMAP.md, queue 1)"
@@ -113,11 +125,6 @@ def stream_stats(kernel, inducing: InducingState, sigma2, X, y, *,
         xb, yb, maskb = _pad_blocks(X, y, mask, block_size)
         return StreamStats(*_forward_scan(kernel, z, u_inv, sigma2, xb, yb,
                                           maskb, z.dtype))
-    if getattr(kernel, "name", None) != "se_iso":
-        raise ValueError(
-            f"the streaming VJP and kernels support the se_iso kernel only, "
-            f"got {getattr(kernel, 'name', kernel)}; use grad_impl='ad'"
-        )
     sigma2 = torch.as_tensor(sigma2, dtype=z.dtype, device=z.device)
     if impl != "reference":
         # the kernels take row-major data (solve_triangular's result on
@@ -127,8 +134,8 @@ def stream_stats(kernel, inducing: InducingState, sigma2, X, y, *,
         z, u_inv, X, y, mask = (None if t is None else t.contiguous()
                                 for t in (z, u_inv, X, y, mask))
     return StreamStats(*StreamStatsFn.apply(
-        kernel.log_ell, kernel.log_sf2, z, u_inv, sigma2, X, y, mask,
-        block_size, impl,
+        kernel, block_size, impl, z, u_inv, sigma2, X, y, mask,
+        *hyper_leaves(kernel)[1],
     ))
 
 

@@ -4,8 +4,11 @@ optimization vector.  The counterpart of ``gpr_tpu/optim/pack.py``.
 The vector layout is the JAX package's, so a packed vector means the same
 thing in both: coordinate 0 is log(sigma2) when ``learn_sigma2``, then the
 selected kernel hypers in sorted field order (``ravel_pytree`` sorts dict
-keys: for SE-iso ``log_ell``, ``log_sf2``), then the inducing coordinates
-row-major when ``learn_inducing``.
+keys: for SE-iso ``log_ell``, ``log_sf2``; for se_fat
+``log_hetero_skedasticity``, ``log_multiscales_m05``, ``log_sf2``,
+``tproj``), then the inducing coordinates row-major when
+``learn_inducing``.  Static fields (se_fat's ``d``) and options that are
+off (None) are not in the vector.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import dataclasses
 from typing import Any, Callable, Sequence
 
 import torch
+
+from ..kernels.base import hyper_fields, kernel_with
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,7 +40,8 @@ def make_pack(kernel, z0, sigma2_0, *, learn_sigma2: bool = True,
     ``learn_inducing`` defaults per kernel class; ``fixed`` names hyper
     fields to hold at the kernel's values.  ``unpack(x)`` returns a kernel
     view (``type(kernel).of``) whose hypers are slices of ``x``, so
-    autograd reaches ``x`` through every field.
+    autograd reaches ``x`` through every field; ``d`` and the fields that
+    are None stay as they were.
     """
     cls = type(kernel)
     if learn_inducing is None:
@@ -45,9 +51,9 @@ def make_pack(kernel, z0, sigma2_0, *, learn_sigma2: bool = True,
     if unknown:
         raise ValueError(f"unknown hyper fields {sorted(unknown)}; "
                          f"{cls.name} has {list(cls.param_names)}")
-    values0 = {name: getattr(kernel, name).detach()
-               for name in cls.param_names}
-    free = sorted(set(cls.param_names) - fixed)
+    values0 = {name: t.detach() for name, t in hyper_fields(kernel).items()
+               if t is not None}
+    free = sorted(set(values0) - fixed)
     pieces = [values0[name].reshape(-1) for name in free]
     if learn_inducing:
         pieces.append(z0.detach().reshape(-1))
@@ -70,7 +76,7 @@ def make_pack(kernel, z0, sigma2_0, *, learn_sigma2: bool = True,
             values[name] = rest[at:at + k].reshape(values0[name].shape)
             at += k
         z = rest[at:].reshape(z0.shape) if learn_inducing else z0
-        return cls.of(**values), z, sigma2
+        return kernel_with(kernel, values), z, sigma2
 
     return HyperPack(
         x0=x0, unpack=unpack, n_hypers=int(x0.shape[0]),

@@ -21,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from ..kernels.base import hyper_leaves, kernel_with
 from .lbfgs import minimize_lbfgs
 from .pack import make_pack
 from .train import make_objective
@@ -60,9 +61,9 @@ def _pack64(pack, x, n_hypers):
     ``n_hypers`` (a layout that cannot be rebuilt)."""
     with torch.no_grad():
         kernel, z, sigma2 = pack.unpack(x.to(F64).to(pack.x0.device))
-    cls = type(kernel)
-    kernel64 = cls.of(**{name: getattr(kernel, name).detach().to(F64)
-                         for name in cls.param_names})
+    names, hypers = hyper_leaves(kernel)
+    kernel64 = kernel_with(kernel, {name: t.detach().to(F64)
+                                    for name, t in zip(names, hypers)})
     pack64 = make_pack(kernel64, z.detach().to(F64),
                        torch.as_tensor(sigma2).detach().to(F64),
                        learn_sigma2=pack.learn_sigma2,

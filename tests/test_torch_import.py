@@ -6,12 +6,14 @@ import sys
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent / "gpr_tpu_torch"
-# modules of the training leg, the roofline path and the Quick-start path,
-# named so that a move or a rename cannot drop them from the scan unnoticed
+# modules of the training leg, the roofline path, the Quick-start path and
+# the command-line path, named so that a move or a rename cannot drop them
+# from the scan unnoticed
 NEWER = ("models/fitc.py", "optim/lbfgs.py", "optim/train.py",
          "optim/polish.py", "ops/gemm_chain.py", "datasets.py",
          "models/predict.py", "models/stats.py", "models/sample.py",
-         "models/loo.py", "optim/sgd_smd.py", "io/resume.py")
+         "models/loo.py", "optim/sgd_smd.py", "io/resume.py", "cli.py",
+         "io/native.py", "kernels/se_fat.py")
 
 
 def _jax_imports(path):
@@ -51,6 +53,9 @@ def test_import_loads_no_jax():
         "co_variance_predictor, predict_means, predict_variances, "
         "cov_sample, loo_objective_fitc)\n"
         "from gpr_tpu_torch.datasets import gen_data\n"
+        "import gpr_tpu_torch.cli, gpr_tpu_torch.io.native\n"
+        "from gpr_tpu_torch.kernels.se_fat import SeFat\n"
+        "assert gpr_tpu_torch.io.native.get_lib() is not None\n"
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
         "'gpr_tpu')]\n"

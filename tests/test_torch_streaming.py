@@ -204,6 +204,6 @@ def test_checkpoint_port_to_jax(rng, tmp_path):
     jart, _ = jckpt.load_model(path)
     for got, want in zip(_predict_port(tart, Xs), _predict_jax(jart, Xs)):
         _close(got, want)
-    bad = dataclasses.replace(tart, family_name="se_fat")
-    with pytest.raises(NotImplementedError, match="se_fat"):
+    bad = dataclasses.replace(tart, family_name="se_ard")
+    with pytest.raises(NotImplementedError, match="se_ard"):
         tckpt.save_model(str(tmp_path / "bad.npz"), bad)
