@@ -13,10 +13,12 @@ f64 rescoring and the f64 polish (``optim.fit_restarts``,
 with checkpoint and resume in ``io.resume``, ``optim.train_sgd`` and
 ``optim.train_smd``, dense serving in ``models.predict``, ``models.stats``
 and ``models.sample``, the FITC LOO of ``models.loo``, ``datasets``), the
-flagship se_fat family (``kernels.se_fat``, through the plain streaming
-loop), the command-line trainer/predictor (``cli``, with its CSV parser
-binding ``io.native``), the roofline GEMM chain (``ops.gemm_chain``) and
-the npz model artifacts (``io``).
+flagship se_fat family and every other base family (``kernels``, through
+the plain streaming loop), per-row noise on the streaming path, the
+command-line trainer/predictor (``cli``, with its CSV parser binding
+``io.native``), the roofline GEMM chain (``ops.gemm_chain``), the
+block-diagonal numerics (``numerics.block_diag``) and the npz model
+artifacts (``io``).
 """
 
 __version__ = "0.1.0"

@@ -3,8 +3,9 @@
 The counterpart of ``gpr_tpu/cli.py`` in PyTorch: the same flags, the same
 CSV-over-stdin protocol and the same text on stdout and stderr, for the
 regression path.  Training is the variational FIC with the se_fat kernel
-by default (bin/ocaml_gpr.ml:176-177; ``-kernel se_iso`` is the other
-ported family): target centering and the reference's per-dimension input
+by default (bin/ocaml_gpr.ml:176-177; ``-kernel NAME`` takes any other base
+family, with its default hyper init and ``-amplitude`` on its signal
+variance where it has one): target centering and the reference's per-dimension input
 standardization (:249-269), L-BFGS evidence maximization with 1 Hz
 throttled verbose reports and a SIGINT-safe best-model bailout (:301-349),
 the host trainer or ``-trainer device`` (with ``-restarts``, ``-polish``,
@@ -19,11 +20,12 @@ and no such request the program exits rather than fall back.  The random
 draws of a restart come from ``np.random.default_rng(seed + r)`` (the
 projection, bit-equal to the JAX package's) and from a
 ``torch.Generator`` seeded with ``seed + r`` (random or k-means inducing
-rows, which therefore differ from the JAX package's).
+rows) or with the integer that seeds the JAX package's key (cosine's
+default frequencies): these draws differ from the JAX package's.
 
 Flags of modules that are not ported yet (``-tasks``, ``-exact``, ``-cg``,
 ``-pitc-block``, ``-warp``, the likelihood flags, ``-trainer sharded``,
-``-devices``, families other than se_iso and se_fat) pass the JAX
+``-devices``, the combinator families and ``-kernel smQ``) pass the JAX
 package's flag checks in its order, then exit naming their ROADMAP.md item.
 
 Run: ``python3 -m gpr_tpu_torch.cli -cmd train -model m.npz < train.csv``,

@@ -2,7 +2,7 @@
 
 Both entries return ``(kernel module, z, sigma2)`` on an explicit device and
 dtype, ready for the streaming functions of ``gpr_tpu_torch.models``.
-The ``se_iso`` and ``se_fat`` families are ported.
+Every base family is ported (``kernels.FAMILIES``).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ def from_jax_params(params: Mapping, z, sigma2, *, device, dtype,
             f"expected {cls.name} parameters {sorted(required)} (optional: "
             f"{sorted(cls.optional_names)}), got {sorted(names)}"
         )
-    kw = {name: v if v is None or name in cls.static_names else np.asarray(v)
+    kw = {name: v if v is None or name in cls.static_names else np.array(v)
           for name, v in params.items()}
     kernel = cls(**kw, device=device, dtype=dtype)
     z_t = torch.tensor(np.asarray(z), dtype=dtype, device=device)

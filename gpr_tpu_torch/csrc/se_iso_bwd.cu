@@ -63,12 +63,20 @@
 //     deterministic.  A CTA waits only while a neighbour is inside its own
 //     update; a cooperative launch guarantees that the neighbour is running.
 //
-// The wide route (every other (m, d) whose shared memory fits, up to about
-// m = 336 at d = 8): se_iso_bwd_kernel_wide, the first kernel.  A CTA walks
-// a contiguous chunk of 32-row tiles; three (32, mp) tiles stay live (Knm; V,
-// reused for Kb and c; VG = Knm UG with UG = U^-1 Gs from the wrapper,
-// overwritten by Vb), and each product streams 64-column panels of its
-// right operand, staged synchronously.
+// The wide route (every other m, up to about m = 2,870 at any d):
+// se_iso_bwd_kernel_wide<R>, the first kernel.  A CTA walks a contiguous
+// chunk of R-row tiles, R the largest of 32, 24, 16 and 8 whose two tiles
+// fit (32 up to about m = 780, 24 up to about 1,030).  Two (R, mp) tiles
+// suffice, as on the tiled route: A holds Knm, then VG = V Gs (the tiled
+// route's order, so Knm is free once V is formed), then Vb; B holds V, then
+// Knm formed again for the triangle update, then c = (Vb U^-T) * Knm, which
+// the last product writes over it.  Each product streams 128-column panels
+// of its right operand in 16-row chunks through a 3-stage cp.async ring,
+// two chunks in flight while one is multiplied, so no m x m operand need fit
+// in the SM; a lane accumulates R / 8 rows by 4 columns of a panel.  Knm reads z from device memory (L1 and L2 hold it), so d
+// bounds only the x tile.  Each tile reads and writes back its CTA's whole
+// partial of the U^-1 cotangent: at m = 1,000 and R = 24 that traffic
+// weighs as much as the FFMAs.
 //
 // Both routes:
 //   * The TPU carried z_bar, U^-1 bar and the scalars across an ordered
@@ -531,108 +539,179 @@ se_iso_bwd_kernel(const float* __restrict__ X, const float* __restrict__ y,
 
 namespace wide {
 
-constexpr int kRows = 32;                           // rows per tile
-constexpr int kWarpRows = kRows / (kThreads / 32);  // rows per warp
-constexpr int kPanel = 64;                          // product panel width
+constexpr int kPanel = 128;   // product panel width: 16 columns a warp, 4 a lane
+constexpr int kChunk = 16;    // weight rows of a panel staged at once
+constexpr int kWideRing = 3;  // stages of the weight chunk ring
+constexpr int kCaug = 4;      // entries of c' [X | 1 | xx] a thread updates at once
 
 enum Tri { kFull, kUpper, kLower };
 
-// Shared memory, in floats: three (kRows x mp) tiles | weight panel
-// (mk x kPanel) | Z^T (d x mp) | |z|^2, ub (2 mp) | x tile (kRows x d) |
-// |x|^2, is, is*y, rb (4 kRows) | scalar reduction (8 warps x 2).
-__host__ __device__ inline size_t smem_floats(int m, int d) {
+// Shared memory at R rows a tile, in floats: two (R x mp) tiles | kWideRing
+// weight chunks (kChunk x kPanel) | |z|^2, ub (2 mp) | x tile (R x d) |
+// |x|^2, is, is*y, rb (4 R) | scalar reduction (8 warps x 2).
+__host__ __device__ inline size_t smem_floats(int m, int d, int R) {
   const int mp = round_up(m, kBlk);
-  const int mk = round_up(m, 4);
-  return 3 * (size_t)kRows * mp + (size_t)mk * kPanel + (size_t)d * mp +
-         2 * (size_t)mp + (size_t)kRows * d + 4 * kRows + 2 * (kThreads / 32);
+  return 2 * (size_t)R * mp + (size_t)kWideRing * kChunk * kPanel + 2 * (size_t)mp +
+         (size_t)R * d + 4 * R + 2 * (kThreads / 32);
 }
 
-// out = in W for one (kRows, mp) tile; W is (m, m) row-major in device
-// memory, streamed through shared memory (Wp) in kPanel-column panels.
-// kUpper: W is upper triangular (column j needs rows k <= j); kLower: lower
-// (rows k >= j).  Only that triangle of W is read.  Columns >= m of out are
-// zero.  in and out are distinct tiles; returns after a barrier.
+// Rows a tile at (m, d): the largest of 32, 24, 16 and 8 whose shared memory
+// fits (8 where none does: the wrapper refuses that).
+inline int rows(int m, int d) {
+  constexpr int kChoices[] = {32, 24, 16};
+  for (int R : kChoices) {
+    if (fits(smem_floats(m, d, R))) return R;
+  }
+  return 8;
+}
+
+// The rows [k0, k1) of W that column panel j0 of a product needs.
 template <Tri kTri>
+__device__ __forceinline__ void panel_rows(int j0, int m, int& k0, int& k1) {
+  k0 = kTri == kLower ? j0 : 0;
+  k1 = kTri == kUpper ? round_up(min(j0 + kPanel, m), 4) : round_up(m, 4);
+}
+
+// out = in W (kMul: out = (in W) * out, entry by entry) for one (R, mp)
+// tile; W is (m, m) row-major in device memory, streamed through the ring
+// Wp in kPanel-column panels of kChunk rows a step, kWideRing - 1 steps
+// (panel, chunk) ahead.  kUpper: W is upper triangular (column j needs rows
+// k <= j); kLower: lower (rows k >= j).  Only that triangle of W is read.
+// Columns >= m of out are zero.  Warp w owns the panel's columns 16 w ..
+// 16 w + 15 for every row; lane l four of them (4 (l % 4) on) for R / 8
+// rows (R / 8 * (l / 4) on): each float4 of W in shared memory then serves
+// R / 8 rows, and each float4 of in four columns.  in and out are distinct
+// tiles; a lane reads back only the out entries it writes (kMul).  Returns
+// after a barrier.
+template <Tri kTri, int R, bool kMul = false>
 __device__ void tile_gemm(const float* __restrict__ in, float* __restrict__ out,
                           const float* __restrict__ W, int m, int mp, float* Wp) {
+  constexpr int kLaneRows = R / 8;  // 8 row groups: lane / 4
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int mk = round_up(m, 4);
+  const int row0 = (lane >> 2) * kLaneRows;
+  const int col = (tid >> 5) * 16 + (lane & 3) * 4;  // in the panel
+  const int wcol = (tid >> 5) * 16;                  // the warp's first, in the panel
+  int ij0 = 0, ic, ik1, stage_w = 0;  // the next step to issue
+  panel_rows<kTri>(0, m, ic, ik1);
+  auto issue = [&]() {
+    if (ij0 < mp) {
+      const int c1 = min(ic + kChunk, ik1);
+      float* dst = Wp + stage_w * kChunk * kPanel;
+      for (int e = tid; e < (c1 - ic) * kPanel; e += kThreads) {
+        const int k = ic + e / kPanel, j = ij0 + e % kPanel;
+        const bool nz = k < m && j < m &&
+                        (kTri == kFull || (kTri == kUpper ? k <= j : k >= j));
+        cp_async4(dst + e, nz ? W + (size_t)k * m + j : W, nz);
+      }
+      ic = c1;
+      if (ic == ik1) {
+        ij0 += kPanel;
+        panel_rows<kTri>(ij0, m, ic, ik1);
+      }
+      stage_w = stage_w + 1 == kWideRing ? 0 : stage_w + 1;
+    }
+    cp_async_commit();
+  };
+  __syncthreads();  // the input tile is written; the last product left Wp
+  for (int s = 0; s < kWideRing - 1; ++s) issue();
+  int stage_r = 0;
   for (int j0 = 0; j0 < mp; j0 += kPanel) {  // j0 < m: mp - j0 >= 8
-    const int k0 = kTri == kLower ? j0 : 0;
-    const int k1 = kTri == kUpper ? round_up(min(j0 + kPanel, m), 4) : mk;
-    __syncthreads();  // the input tile is written; the last panel is consumed
-    for (int e = tid; e < (k1 - k0) * kPanel; e += kThreads) {
-      const int k = k0 + e / kPanel, j = j0 + e % kPanel;
-      const bool nz = k < m && j < m &&
-                      (kTri == kFull || (kTri == kUpper ? k <= j : k >= j));
-      Wp[e] = nz ? W[(size_t)k * m + j] : 0.0f;
-    }
-    __syncthreads();
-    float acc[kWarpRows][2];
+    int k0, k1;
+    panel_rows<kTri>(j0, m, k0, k1);
+    float acc[kLaneRows][4];
 #pragma unroll
-    for (int i = 0; i < kWarpRows; ++i) acc[i][0] = acc[i][1] = 0.0f;
-    for (int k = k0; k < k1; k += 4) {
-      const float* w = Wp + (size_t)(k - k0) * kPanel;
-      float w0[4], w1[4];
+    for (int i = 0; i < kLaneRows; ++i)
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        w0[t] = w[t * kPanel + lane];
-        w1[t] = w[t * kPanel + 32 + lane];
+      for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+    for (int c0 = k0; c0 < k1; c0 += kChunk) {
+      const int c1 = min(c0 + kChunk, k1);
+      cp_async_wait<kWideRing - 2>();
+      // This step's chunk is in for every thread; the stage the next issue
+      // overwrites was read by all at the last step.
+      __syncthreads();
+      issue();
+      const float* wp = Wp + stage_r * kChunk * kPanel + col;
+      stage_r = stage_r + 1 == kWideRing ? 0 : stage_r + 1;
+      // A warp whose 16 columns the chunk holds only zeros for (past m, or
+      // on the zero side of W's triangle) skips it: the same sums.
+      const int wc0 = j0 + wcol;
+      if (wc0 >= m || (kTri == kUpper && c0 > wc0 + 15) || (kTri == kLower && c1 <= wc0))
+        continue;
+      // each chunk sums into its own partial, added to acc after it (as in
+      // the forward wide route)
+      float part[kLaneRows][4];
+#pragma unroll
+      for (int i = 0; i < kLaneRows; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][c] = 0.0f;
+      for (int k = c0; k < c1; k += 4) {
+        float4 a[kLaneRows];
+#pragma unroll
+        for (int i = 0; i < kLaneRows; ++i)
+          a[i] = *reinterpret_cast<const float4*>(&in[(row0 + i) * mp + k]);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float4 w = *reinterpret_cast<const float4*>(wp + (k - c0 + t) * kPanel);
+#pragma unroll
+          for (int i = 0; i < kLaneRows; ++i) {
+            const float av = t == 0 ? a[i].x : t == 1 ? a[i].y : t == 2 ? a[i].z : a[i].w;
+            part[i][0] += av * w.x;
+            part[i][1] += av * w.y;
+            part[i][2] += av * w.z;
+            part[i][3] += av * w.w;
+          }
+        }
       }
 #pragma unroll
-      for (int i = 0; i < kWarpRows; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(&in[(warp * kWarpRows + i) * mp + k]);
-        acc[i][0] += a.x * w0[0];
-        acc[i][0] += a.y * w0[1];
-        acc[i][0] += a.z * w0[2];
-        acc[i][0] += a.w * w0[3];
-        acc[i][1] += a.x * w1[0];
-        acc[i][1] += a.y * w1[1];
-        acc[i][1] += a.z * w1[2];
-        acc[i][1] += a.w * w1[3];
-      }
+      for (int i = 0; i < kLaneRows; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] += part[i][c];
     }
+    const int j = j0 + col;  // a multiple of 4, and mp of 8: all four or none
+    if (j < mp) {
 #pragma unroll
-    for (int i = 0; i < kWarpRows; ++i) {
-      const int row = warp * kWarpRows + i;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = j0 + 32 * h + lane;
-        if (j < mp) out[row * mp + j] = j < m ? acc[i][h] : 0.0f;
+      for (int i = 0; i < kLaneRows; ++i) {
+        float4* o = reinterpret_cast<float4*>(&out[(row0 + i) * mp + j]);
+        float4 v = make_float4(j < m ? acc[i][0] : 0.0f, j + 1 < m ? acc[i][1] : 0.0f,
+                               j + 2 < m ? acc[i][2] : 0.0f, j + 3 < m ? acc[i][3] : 0.0f);
+        if (kMul) {
+          const float4 b = *o;
+          v = make_float4(v.x * b.x, v.y * b.y, v.z * b.z, v.w * b.w);
+        }
+        *o = v;
       }
     }
   }
+  cp_async_wait<0>();
   __syncthreads();
 }
 
+template <int R>
 __global__ void __launch_bounds__(kThreads)
 se_iso_bwd_kernel_wide(const float* __restrict__ X, const float* __restrict__ y,
                   const float* __restrict__ mask, const float* __restrict__ z,
                   const float* __restrict__ u_inv, const float* __restrict__ u_inv_t,
-                  const float* __restrict__ ug, const float* __restrict__ ubar,
+                  const float* __restrict__ gs, const float* __restrict__ ubar,
                   long long n, int d, int m, float q, float log_sf2, float sigma2,
                   float lds_bar, float yiy_bar, float isr_bar, int tiles_per_cta,
                   long long n_tiles, float* __restrict__ ui_part,
                   float* __restrict__ caug_part, float* __restrict__ sums_part,
                   float* __restrict__ y_bar) {
+  constexpr int kWarpRows = R / (kThreads / 32);  // rows per warp
   extern __shared__ float4 smem4[];
   const int mp = round_up(m, kBlk);
-  const int mk = round_up(m, 4);
-  float* A = reinterpret_cast<float*>(smem4);  // Knm
-  float* B = A + (size_t)kRows * mp;           // V, then Kb, then c
-  float* C = B + (size_t)kRows * mp;           // VG, then Vb
-  float* Wp = C + (size_t)kRows * mp;
-  float* Zt = Wp + (size_t)mk * kPanel;
-  float* z2 = Zt + (size_t)d * mp;
+  float* A = reinterpret_cast<float*>(smem4);  // Knm, then VG, then Vb
+  float* B = A + (size_t)R * mp;               // V, then Knm, then c
+  float* Wp = B + (size_t)R * mp;
+  float* z2 = Wp + kWideRing * kChunk * kPanel;
   float* ub = z2 + mp;
   float* xs = ub + mp;
-  float* xx = xs + kRows * d;
-  float* is_r = xx + kRows;
-  float* isy_r = is_r + kRows;
-  float* rb_r = isy_r + kRows;
-  float* red = rb_r + kRows;
+  float* xx = xs + R * d;
+  float* is_r = xx + R;
+  float* isy_r = is_r + R;
+  float* rb_r = isy_r + R;
+  float* red = rb_r + R;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -642,10 +721,6 @@ se_iso_bwd_kernel_wide(const float* __restrict__ X, const float* __restrict__ y,
   const int naug = m * (d + 2);
   const float sf2 = expf(log_sf2);
 
-  for (int e = tid; e < d * mp; e += kThreads) {
-    int k = e / mp, j = e % mp;
-    Zt[e] = j < m ? z[(size_t)j * d + k] : 0.0f;
-  }
   for (int j = tid; j < mp; j += kThreads) {
     float acc = 0.0f;
     for (int k = 0; k < d && j < m; ++k) {
@@ -667,39 +742,42 @@ se_iso_bwd_kernel_wide(const float* __restrict__ X, const float* __restrict__ y,
   float* ca = caug_part + (size_t)blockIdx.x * 2 * naug;
 
   for (long long t = t0; t < t1; ++t) {
-    const long long row0 = t * kRows;
+    const long long row0 = t * R;
     const bool first = t == t0;
-    __syncthreads();  // previous tile fully consumed; Zt/z2/ub written
+    __syncthreads();  // previous tile fully consumed; z2/ub written
 
     // 1. x tile and |x|^2
-    for (int e = tid; e < kRows * d; e += kThreads) {
+    for (int e = tid; e < R * d; e += kThreads) {
       long long row = row0 + e / d;
       xs[e] = row < n ? X[row * d + e % d] : 0.0f;
     }
     __syncthreads();
-    if (tid < kRows) {
+    if (tid < R) {
       float acc = 0.0f;
       for (int k = 0; k < d; ++k) acc += xs[tid * d + k] * xs[tid * d + k];
       xx[tid] = acc;
     }
     __syncthreads();
 
-    // 2. Knm tile; columns >= m are zero
-    for (int e = tid; e < kRows * mp; e += kThreads) {
-      int r = e / mp, j = e % mp;
-      float val = 0.0f;
-      if (j < m) {
-        float xz = 0.0f;
-        for (int k = 0; k < d; ++k) xz += xs[r * d + k] * Zt[k * mp + j];
-        float d2 = fmaxf(xx[r] - 2.0f * xz + z2[j], 0.0f);
-        val = expf(log_sf2 + q * d2);
+    // 2. Knm tile into A; columns >= m are zero
+    auto form_knm = [&](float* K) {
+      for (int e = tid; e < R * mp; e += kThreads) {
+        int r = e / mp, j = e % mp;
+        float val = 0.0f;
+        if (j < m) {
+          float xz = 0.0f;
+          for (int k = 0; k < d; ++k) xz += xs[r * d + k] * __ldg(z + (size_t)j * d + k);
+          float d2 = fmaxf(xx[r] - 2.0f * xz + z2[j], 0.0f);
+          val = expf(log_sf2 + q * d2);
+        }
+        K[e] = val;
       }
-      A[e] = val;
-    }
+    };
+    form_knm(A);
 
-    // 3. V = Knm U^-1 and VG = Knm UG
-    tile_gemm<kUpper>(A, B, u_inv, m, mp, Wp);
-    tile_gemm<kFull>(A, C, ug, m, mp, Wp);
+    // 3. V = Knm U^-1 into B, then VG = V Gs over Knm
+    tile_gemm<kUpper, R>(A, B, u_inv, m, mp, Wp);
+    tile_gemm<kFull, R>(B, A, gs, m, mp, Wp);
 
     // 4. the per-row chain (each warp owns kWarpRows rows)
     float l_rb = 0.f, l_sb = 0.f;
@@ -710,7 +788,7 @@ se_iso_bwd_kernel_wide(const float* __restrict__ X, const float* __restrict__ y,
         const float v = B[r * mp + j];
         ss += v * v;
         vu += v * ub[j];
-        vgv += C[r * mp + j] * v;
+        vgv += A[r * mp + j] * v;
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
@@ -751,79 +829,50 @@ se_iso_bwd_kernel_wide(const float* __restrict__ X, const float* __restrict__ y,
     }
 
     // 5. Vb = is VG + (is y) ub' - 2 V rb, in place over VG
-    for (int e = tid; e < kRows * mp; e += kThreads) {
+    for (int e = tid; e < R * mp; e += kThreads) {
       const int r = e / mp, j = e % mp;
-      C[e] = is_r[r] * C[e] + isy_r[r] * ub[j] - 2.0f * B[e] * rb_r[r];
+      A[e] = is_r[r] * A[e] + isy_r[r] * ub[j] - 2.0f * B[e] * rb_r[r];
     }
+    __syncthreads();  // every read of V is done
 
-    // 6. Kb = Vb U^-T over V
-    tile_gemm<kLower>(C, B, u_inv_t, m, mp, Wp);
+    // 6. Knm again, over V
+    form_knm(B);
+    __syncthreads();
 
-    // 7. c = Kb * Knm over Kb
-    for (int e = tid; e < kRows * mp; e += kThreads) B[e] *= A[e];
+    // 7. upper 8 x 8 blocks of Knm' Vb into this CTA's partial (reads B, A),
+    //    kBatch float4 pairs in flight a thread, as on the tiled route
+    add_gram<true, kBatch, R>(B, nullptr, mp, ui, first, A);
 
-    // 8. upper 8 x 8 blocks of Knm' Vb into this CTA's partial (reads A, C)
-    for (int b = tid; b < nblk; b += kThreads) {
-      int bi = 0, rem = b;
-      while (rem >= nb8 - bi) {
-        rem -= nb8 - bi;
-        ++bi;
-      }
-      const int bj = bi + rem;
-      float acc[kBlk][kBlk];
+    // 8. c = (Vb U^-T) * Knm over Knm (tile_gemm starts and ends with a
+    //    barrier: the triangle update is done before c goes over Knm)
+    tile_gemm<kLower, R, true>(A, B, u_inv_t, m, mp, Wp);
+
+    // 9. caug += c' [x | 1 | xx]; each thread owns fixed entries, kCaug at
+    //    a time, their partial's reads in flight together
+    for (int e0 = tid; e0 < naug; e0 += kCaug * kThreads) {
+      float acc[kCaug], h[kCaug], l[kCaug];
 #pragma unroll
-      for (int i = 0; i < kBlk; ++i)
-#pragma unroll
-        for (int j = 0; j < kBlk; ++j) acc[i][j] = 0.0f;
-      for (int r = 0; r < kRows; ++r) {
-        const float4* ra = reinterpret_cast<const float4*>(&A[r * mp + bi * kBlk]);
-        const float4* rc = reinterpret_cast<const float4*>(&C[r * mp + bj * kBlk]);
-        float4 a0 = ra[0], a1 = ra[1], c0 = rc[0], c1 = rc[1];
-        float av[kBlk] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        float cv[kBlk] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-#pragma unroll
-        for (int i = 0; i < kBlk; ++i)
-#pragma unroll
-          for (int j = 0; j < kBlk; ++j) acc[i][j] += av[i] * cv[j];
-      }
-      float4* hi4 = reinterpret_cast<float4*>(ui + (size_t)b * kBlk * kBlk);
-      float4* lo4 = reinterpret_cast<float4*>(ui + ((size_t)nblk + b) * kBlk * kBlk);
-#pragma unroll
-      for (int v = 0; v < kBlk * kBlk / 4; ++v) {
-        const int i = v / 2, j = (v % 2) * 4;
-        float4 tv = make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
-        if (first) {
-          hi4[v] = tv;
-          lo4[v] = make_float4(0.f, 0.f, 0.f, 0.f);
-        } else {
-          float4 h = hi4[v], l = lo4[v];
-          two_sum(h.x, l.x, tv.x);
-          two_sum(h.y, l.y, tv.y);
-          two_sum(h.z, l.z, tv.z);
-          two_sum(h.w, l.w, tv.w);
-          hi4[v] = h;
-          lo4[v] = l;
+      for (int u = 0; u < kCaug; ++u) {
+        const int e = e0 + u * kThreads;
+        acc[u] = h[u] = l[u] = 0.0f;
+        if (e >= naug) continue;
+        const int j = e / (d + 2), k = e % (d + 2);
+        for (int r = 0; r < R; ++r) {
+          const float a = k < d ? xs[r * d + k] : (k == d ? 1.0f : xx[r]);
+          acc[u] += B[r * mp + j] * a;
+        }
+        if (!first) {
+          h[u] = __ldcg(ca + e);
+          l[u] = __ldcg(ca + naug + e);
         }
       }
-    }
-    __syncthreads();  // c is complete
-
-    // 9. caug += c' [x | 1 | xx]; each thread owns fixed entries
-    for (int e = tid; e < naug; e += kThreads) {
-      const int j = e / (d + 2), k = e % (d + 2);
-      float acc = 0.0f;
-      for (int r = 0; r < kRows; ++r) {
-        const float a = k < d ? xs[r * d + k] : (k == d ? 1.0f : xx[r]);
-        acc += B[r * mp + j] * a;
-      }
-      if (first) {
-        ca[e] = acc;
-        ca[naug + e] = 0.0f;
-      } else {
-        float h = ca[e], l = ca[naug + e];
-        two_sum(h, l, acc);
-        ca[e] = h;
-        ca[naug + e] = l;
+#pragma unroll
+      for (int u = 0; u < kCaug; ++u) {
+        const int e = e0 + u * kThreads;
+        if (e >= naug) continue;
+        if (!first) two_sum(h[u], l[u], acc[u]);
+        ca[e] = first ? acc[u] : h[u];
+        ca[naug + e] = l[u];
       }
     }
   }
@@ -840,8 +889,26 @@ se_iso_bwd_kernel_wide(const float* __restrict__ X, const float* __restrict__ y,
 }  // namespace wide
 
 inline size_t smem_bytes(int m, int d) {
-  return (route_groups(m, d) ? tiled_smem_floats(m, d) : wide::smem_floats(m, d)) *
+  return (route_groups(m, d) ? tiled_smem_floats(m, d)
+                             : wide::smem_floats(m, d, wide::rows(m, d))) *
          sizeof(float);
+}
+
+template <int R>
+int launch_wide(const float* X, const float* y, const float* mask, const float* z,
+                const float* u_inv, const float* u_inv_t, const float* gs, const float* ubar,
+                long long n, int d, int m, float q, float log_sf2, float sigma2, float lds_bar,
+                float yiy_bar, float isr_bar, int n_ctas, int tiles_per_cta, float* ui_part,
+                float* caug_part, float* sums_part, float* y_bar, cudaStream_t stream) {
+  const size_t bytes = wide::smem_floats(m, d, R) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      wide::se_iso_bwd_kernel_wide<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_tiles = (n + R - 1) / R;
+  wide::se_iso_bwd_kernel_wide<R><<<n_ctas, kThreads, bytes, stream>>>(
+      X, y, mask, z, u_inv, u_inv_t, gs, ubar, n, d, m, q, log_sf2, sigma2, lds_bar, yiy_bar,
+      isr_bar, tiles_per_cta, n_tiles, ui_part, caug_part, sums_part, y_bar);
+  return (int)cudaGetLastError();
 }
 
 template <int G>
@@ -875,9 +942,11 @@ int launch_tiled(const float* X, const float* y, const float* mask, const float*
 
 extern "C" {
 
-// Rows per tile of the tiled route, twice the wide route's; the wrapper
-// holds block_size to a multiple of it.
+// Rows per tile of the tiled route; the wrapper sizes the grid from it.
 int se_iso_bwd_rows_per_tile() { return kRows; }
+
+// Rows per tile of the wide route at (m, d): 32, 24, 16 or 8.
+int se_iso_bwd_wide_rows(int m, int d) { return wide::rows(m, d); }
 
 // The route at (m, d): G = ceil(m / 64) of the tiled route, or 0 for the wide
 // route.
@@ -892,15 +961,14 @@ long long se_iso_bwd_smem_bytes(int m, int d) { return (long long)smem_bytes(m, 
 // share); for share > 1, turn (n_parts ints) must be zero, and the launch is
 // cooperative (every CTA must fit on the device at once).  On the wide route
 // CTA c walks tiles [c * tiles_per_cta, (c + 1) * tiles_per_cta) of the
-// ceil(n / 32) row tiles, every CTA must own at least one tile, n_parts =
+// ceil(n / R) row tiles, R = se_iso_bwd_wide_rows(m, d), every CTA must own at least one tile, n_parts =
 // n_ctas, and share and turn are not read.
-// u_inv (upper triangular) and u_inv_t = u_inv' are (m, m); g is (m, m): Gs =
-// Gb + Gb' on the tiled route, UG = U^-1 Gs on the wide route; ubar is (m,).
+// u_inv (upper triangular) and u_inv_t = u_inv' are (m, m); g is Gs = Gb +
+// Gb' (m, m); ubar is (m,).
 // Outputs, hi then lo, over the nblk = nb8 (nb8 + 1) / 2 upper 8 x 8 blocks
 // (row-major order) of Knm' Vb padded to mp = 8 nb8 >= m:
-//   ui_part   tiled (n_parts, 2, 16, nblk, 4): float4 v (entries v / 2,
-//             4 (v % 2) .. + 3) of block b at [v][b]; wide (n_parts, 2, nblk,
-//             8, 8);
+//   ui_part   (n_parts, 2, 16, nblk, 4): float4 v (entries v / 2,
+//             4 (v % 2) .. + 3) of block b at [v][b];
 //   caug_part c' [X | 1 | xx]: tiled (n_ctas, 2, d + 2, mp), zero for columns
 //             >= m; wide (n_ctas, 2, m, d + 2);
 //   sums_part (n_ctas, 2, 2): [sum rb, sum sb].
@@ -928,15 +996,20 @@ int se_iso_bwd_acc(const float* X, const float* y, const float* mask, const floa
     default: break;
   }
 #undef TILED
-  const size_t bytes = wide::smem_floats(m, d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      wide::se_iso_bwd_kernel_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const long long n_tiles = (n + wide::kRows - 1) / wide::kRows;
-  wide::se_iso_bwd_kernel_wide<<<n_ctas, kThreads, bytes, s>>>(
-      X, y, mask, z, u_inv, u_inv_t, g, ubar, n, d, m, q, log_sf2, sigma2, lds_bar, yiy_bar,
-      isr_bar, tiles_per_cta, n_tiles, ui_part, caug_part, sums_part, y_bar);
-  return (int)cudaGetLastError();
+#define WIDE(R)                                                                              \
+  case R:                                                                                    \
+    return launch_wide<R>(X, y, mask, z, u_inv, u_inv_t, g, ubar, n, d, m, q, log_sf2,        \
+                          sigma2, lds_bar, yiy_bar, isr_bar, n_ctas, tiles_per_cta, ui_part, \
+                          caug_part, sums_part, y_bar, s)
+  switch (wide::rows(m, d)) {
+    WIDE(32);
+    WIDE(24);
+    WIDE(16);
+    WIDE(8);
+    default: break;
+  }
+#undef WIDE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

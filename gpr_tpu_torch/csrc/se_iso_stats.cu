@@ -52,12 +52,20 @@
 //     read-modify-write traffic (below), which cost a third of the kernel's
 //     time at m = 300 when every tile paid it.
 //
-// The wide route (every other (m, d) whose shared memory fits, up to about
-// m = 540 at d = 8): se_iso_stats_kernel_wide<kComp>, the first kernel.  A
-// CTA walks a contiguous chunk of tiles_per_cta tiles; V is formed in place
-// over the Knm tile, panel by panel from the right, with 32-column panels of
-// U^-1 staged synchronously (half the flops of a full product; only the
-// upper triangle of u_inv is read).
+// The wide route (every other m, up to about m = 5,980 at any d):
+// se_iso_stats_kernel_wide<R, kComp>, the first kernel.  A CTA walks a
+// contiguous chunk of tiles_per_cta tiles of R rows, R the largest of 64,
+// 48, 32, 24, 16 and 8 whose (R, mp) tile fits in shared memory (64 up to
+// about m = 810, 48 up to about 1,080).  V is formed in place over the Knm
+// tile, panel by panel from the right, against 32-column panels of U^-1
+// (half the flops of a full product; only the upper triangle of u_inv is
+// read) that stream in 64-row chunks through a 2-stage cp.async ring, the
+// next chunk in flight while this one is multiplied, so no m x m operand
+// need fit in the SM.  Each chunk sums into its own partial of V, so the
+// rounding grows with m / 64 + 64 terms, not m.  Knm reads z from device
+// memory (L1 and L2 hold it), so d bounds only the x tile.  Each Gram
+// update reads and writes the whole m x m partial for R rows: at m = 1,000
+// and R = 48 that traffic, not the FFMAs, bounds it.
 //
 // Both routes:
 //   * The TPU ran its grid in order and carried sums in VMEM.  Here each CTA
@@ -85,17 +93,32 @@
 namespace {
 
 constexpr int kPanel = 32;  // wide route: V panel width (one column per lane)
+constexpr int kChunk = 64;  // wide route: U^-1 rows of a panel staged at once
+constexpr int kWideRing = 2;  // wide route: stages of the U^-1 chunk ring
+// wide route: float4 pairs in flight in the compensated Gram write-back (the
+// tiled route prefetches instead; at m = 1,000 this was 19 % faster)
+constexpr int kWideBatch = 8;
 constexpr int kMaxTiledM = kGroup * kMaxGroups - 1;  // column m (u) in the last group
 constexpr int kRing = 2;    // tiled route: stages of the U^-1 ring
 
-// Wide route shared memory, in floats: tile (kRows x mp) | U^-1 panel (mk x
-// kPanel) | Z^T (d x mp) | |z|^2 (mp) | x tile (kRows x d) | w, w*y (2 kRows) |
-// scalar reduction (8 warps x 4).
-__host__ __device__ inline size_t wide_smem_floats(int m, int d) {
+// Wide route shared memory at R rows a tile, in floats: tile (R x mp) |
+// kWideRing U^-1 chunks (kChunk x kPanel) | |z|^2 (mp) | x tile (R x d) |
+// w, w*y (2 R) | scalar reduction (8 warps x 4).
+__host__ __device__ inline size_t wide_smem_floats(int m, int d, int R) {
   int mp = round_up(m + 1, kBlk);
-  int mk = round_up(m, 4);
-  return (size_t)kRows * mp + (size_t)mk * kPanel + (size_t)d * mp + mp +
-         (size_t)kRows * d + 2 * kRows + 32;
+  return (size_t)R * mp + (size_t)kWideRing * kChunk * kPanel + mp + (size_t)R * d + 2 * R +
+         32;
+}
+
+// Rows a tile of the wide route at (m, d): the largest of 64, 48, 32, 24, 16
+// and 8 whose shared memory fits (8 where none does: the wrapper refuses
+// that).
+inline int wide_rows(int m, int d) {
+  constexpr int kChoices[] = {64, 48, 32, 24, 16};
+  for (int R : kChoices) {
+    if (fits(wide_smem_floats(m, d, R))) return R;
+  }
+  return 8;
 }
 
 __host__ __device__ inline int tiled_groups(int m) { return (m + kGroup) / kGroup; }
@@ -128,7 +151,7 @@ inline bool route_fold(int m, int d) {
 
 inline size_t smem_bytes(int m, int d) {
   return (route_groups(m, d) ? tiled_smem_floats(m, d, route_fold(m, d))
-                             : wide_smem_floats(m, d)) *
+                             : wide_smem_floats(m, d, wide_rows(m, d))) *
          sizeof(float);
 }
 
@@ -349,24 +372,23 @@ se_iso_stats_kernel(const float* __restrict__ X, const float* __restrict__ y,
 
 // ----------------------------------------------------------------- wide route
 
-template <bool kComp>
+template <int R, bool kComp>
 __global__ void __launch_bounds__(kThreads, 1)  // the grid is one CTA an SM
 se_iso_stats_kernel_wide(const float* __restrict__ X, const float* __restrict__ y,
                          const float* __restrict__ mask, const float* __restrict__ z,
                          const float* __restrict__ u_inv, long long n, int d, int m, float q,
                          float log_sf2, float sigma2, int tiles_per_cta, long long n_tiles,
                          float* __restrict__ gram_part, float* __restrict__ sums_part) {
+  constexpr int kWR = R / (kThreads / 32);  // rows a warp
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);
   const int mp = round_up(m + 1, kBlk);
-  const int mk = round_up(m, 4);
-  float* Up = S + (size_t)kRows * mp;
-  float* Zt = Up + (size_t)mk * kPanel;
-  float* z2 = Zt + (size_t)d * mp;
+  float* Up = S + (size_t)R * mp;
+  float* z2 = Up + kWideRing * kChunk * kPanel;
   float* xs = z2 + mp;
-  float* wrow = xs + kRows * d;
-  float* wyrow = wrow + kRows;
-  float* red = wyrow + kRows;
+  float* wrow = xs + R * d;
+  float* wyrow = wrow + R;
+  float* red = wyrow + R;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -375,10 +397,6 @@ se_iso_stats_kernel_wide(const float* __restrict__ X, const float* __restrict__ 
   const int nblk = nb8 * (nb8 + 1) / 2;
   const float sf2 = expf(log_sf2);
 
-  for (int e = tid; e < d * mp; e += kThreads) {
-    int k = e / mp, j = e % mp;
-    Zt[e] = j < m ? z[(size_t)j * d + k] : 0.0f;
-  }
   for (int j = tid; j < mp; j += kThreads) {
     float acc = 0.0f;
     for (int k = 0; k < d && j < m; ++k) {
@@ -398,16 +416,16 @@ se_iso_stats_kernel_wide(const float* __restrict__ X, const float* __restrict__ 
   float* part = gram_part + (size_t)blockIdx.x * (kComp ? 2 : 1) * nblk * kBlk * kBlk;
 
   for (long long t = t0; t < t1; ++t) {
-    const long long row0 = t * kRows;
-    __syncthreads();  // previous tile fully consumed; Zt/z2 written
+    const long long row0 = t * R;
+    __syncthreads();  // previous tile fully consumed; z2 written
 
     // 1. x tile and |x|^2
-    for (int e = tid; e < kRows * d; e += kThreads) {
+    for (int e = tid; e < R * d; e += kThreads) {
       long long row = row0 + e / d;
       xs[e] = row < n ? X[row * d + e % d] : 0.0f;
     }
     __syncthreads();
-    if (tid < kRows) {
+    if (tid < R) {
       float acc = 0.0f;
       for (int k = 0; k < d; ++k) acc += xs[tid * d + k] * xs[tid * d + k];
       wyrow[tid] = acc;  // |x|^2, until step 4 overwrites it
@@ -415,59 +433,99 @@ se_iso_stats_kernel_wide(const float* __restrict__ X, const float* __restrict__ 
     __syncthreads();
 
     // 2. Knm tile; columns >= m are zero
-    for (int e = tid; e < kRows * mp; e += kThreads) {
+    for (int e = tid; e < R * mp; e += kThreads) {
       int r = e / mp, j = e % mp;
       float val = 0.0f;
       if (j < m) {
         float xz = 0.0f;
-        for (int k = 0; k < d; ++k) xz += xs[r * d + k] * Zt[k * mp + j];
+        for (int k = 0; k < d; ++k) xz += xs[r * d + k] * __ldg(z + (size_t)j * d + k);
         float d2 = fmaxf(wyrow[r] - 2.0f * xz + z2[j], 0.0f);
         val = expf(log_sf2 + q * d2);
       }
       S[e] = val;
     }
 
-    // 3. V = Knm U^-1 in place, panels right to left
+    // 3. V = Knm U^-1 in place, panels right to left; each panel's U^-1
+    //    rows [0, kk) stream in kChunk-row chunks through the ring, one
+    //    step (panel, chunk) ahead.  A warp reads and writes only its own
+    //    rows (warp + 8 i), so its V goes over its Knm columns after a warp
+    //    barrier.
     const int npan = (m + kPanel - 1) / kPanel;
+    int ip = npan - 1, ic = 0, stage_w = 0;  // the next step to issue
+    auto issue = [&]() {
+      if (ip >= 0) {
+        const int j0 = ip * kPanel;
+        const int kk = round_up(min(j0 + kPanel, m), 4);
+        const int c1 = min(ic + kChunk, kk);
+        float* dst = Up + stage_w * kChunk * kPanel;
+        for (int e = tid; e < (c1 - ic) * kPanel; e += kThreads) {
+          const int k = ic + e / kPanel, j = j0 + e % kPanel;
+          const bool ok = j < m && k <= j;
+          cp_async4(dst + e, ok ? u_inv + (size_t)k * m + j : u_inv, ok);
+        }
+        ic = c1;
+        if (ic == kk) {
+          ic = 0;
+          --ip;
+        }
+        stage_w = stage_w + 1 == kWideRing ? 0 : stage_w + 1;
+      }
+      cp_async_commit();
+    };
+    for (int s = 0; s < kWideRing - 1; ++s) issue();
+    int stage_r = 0;
     for (int p = npan - 1; p >= 0; --p) {
       const int j0 = p * kPanel;
       const int j1 = min(j0 + kPanel, m);
       const int kk = round_up(j1, 4);
-      __syncthreads();  // Knm written / previous panel stored
-      for (int e = tid; e < kk * kPanel; e += kThreads) {
-        int k = e / kPanel, j = j0 + e % kPanel;
-        Up[e] = (j < m && k <= j) ? u_inv[(size_t)k * m + j] : 0.0f;
-      }
-      __syncthreads();
-      float acc[8];
+      float acc[kWR];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] = 0.0f;
-      for (int k = 0; k < kk; k += 4) {
-        float u0 = Up[(k + 0) * kPanel + lane];
-        float u1 = Up[(k + 1) * kPanel + lane];
-        float u2 = Up[(k + 2) * kPanel + lane];
-        float u3 = Up[(k + 3) * kPanel + lane];
+      for (int i = 0; i < kWR; ++i) acc[i] = 0.0f;
+      for (int c0 = 0; c0 < kk; c0 += kChunk) {
+        const int c1 = min(c0 + kChunk, kk);
+        cp_async_wait<kWideRing - 2>();
+        // This step's chunk is in for every thread; the stage the next
+        // issue overwrites was read by all at the last step; Knm is written.
+        __syncthreads();
+        issue();
+        const float* up = Up + stage_r * kChunk * kPanel;
+        stage_r = stage_r + 1 == kWideRing ? 0 : stage_r + 1;
+        // each chunk sums into its own partial, added to acc after it: the
+        // rounding of V then grows with m / kChunk + kChunk terms, not m
+        float part[kWR];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          float4 s4 = *reinterpret_cast<const float4*>(&S[(warp + 8 * i) * mp + k]);
-          acc[i] += s4.x * u0;
-          acc[i] += s4.y * u1;
-          acc[i] += s4.z * u2;
-          acc[i] += s4.w * u3;
+        for (int i = 0; i < kWR; ++i) part[i] = 0.0f;
+        for (int k = c0; k < c1; k += 4) {
+          const float* uc = up + (k - c0) * kPanel;
+          float u0 = uc[0 * kPanel + lane];
+          float u1 = uc[1 * kPanel + lane];
+          float u2 = uc[2 * kPanel + lane];
+          float u3 = uc[3 * kPanel + lane];
+#pragma unroll
+          for (int i = 0; i < kWR; ++i) {
+            float4 s4 = *reinterpret_cast<const float4*>(&S[(warp + 8 * i) * mp + k]);
+            part[i] += s4.x * u0;
+            part[i] += s4.y * u1;
+            part[i] += s4.z * u2;
+            part[i] += s4.w * u3;
+          }
         }
+#pragma unroll
+        for (int i = 0; i < kWR; ++i) acc[i] += part[i];
       }
-      __syncthreads();  // every read of this panel's Knm columns is done
+      __syncwarp();  // every read of this warp's rows' Knm columns is done
       if (j0 + lane < m) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) S[(warp + 8 * i) * mp + j0 + lane] = acc[i];
+        for (int i = 0; i < kWR; ++i) S[(warp + 8 * i) * mp + j0 + lane] = acc[i];
       }
     }
+    cp_async_wait<0>();
     __syncthreads();
 
-    // 4. per-row r, s, is, w; scalar sums (each warp owns 8 rows)
+    // 4. per-row r, s, is, w; scalar sums (each warp owns kWR rows)
     float l[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int i = 0; i < 8; ++i) {
-      const int r = warp * 8 + i;
+    for (int i = 0; i < kWR; ++i) {
+      const int r = warp * kWR + i;
       float ss = 0.0f;
       for (int j = lane; j < m; j += 32) ss += S[r * mp + j] * S[r * mp + j];
 #pragma unroll
@@ -481,7 +539,7 @@ se_iso_stats_kernel_wide(const float* __restrict__ X, const float* __restrict__ 
     if (tid == 0) fold_scalars(red, s_hi, s_lo);
 
     // 5. A = [V w | w y | 0]
-    for (int e = tid; e < kRows * mp; e += kThreads) {
+    for (int e = tid; e < R * mp; e += kThreads) {
       int r = e / mp, j = e % mp;
       if (j < m) S[e] *= wrow[r];
       else if (j == m) S[e] = wyrow[r];
@@ -489,7 +547,7 @@ se_iso_stats_kernel_wide(const float* __restrict__ X, const float* __restrict__ 
     __syncthreads();
 
     // 6. upper 8 x 8 blocks of A'A into this CTA's partial
-    add_gram<kComp>(S, nullptr, mp, part, t == t0);
+    add_gram<kComp, kWideBatch, R>(S, nullptr, mp, part, t == t0);
   }
 
   if (tid == 0) write_scalars(sums_part, s_hi, s_lo);
@@ -508,6 +566,22 @@ int launch_tiled(const float* X, const float* y, const float* mask, const float*
   const long long n_tiles = (n + kRows - 1) / kRows;
   se_iso_stats_kernel<G, kComp><<<n_ctas, kThreads, bytes, stream>>>(
       X, y, mask, z, u_inv, n, d, m, q, log_sf2, sigma2, n_tiles, fold, gram_part, sums_part);
+  return (int)cudaGetLastError();
+}
+
+template <int R, bool kComp>
+int launch_wide(const float* X, const float* y, const float* mask, const float* z,
+                const float* u_inv, long long n, int d, int m, float q, float log_sf2,
+                float sigma2, int n_ctas, int tiles_per_cta, float* gram_part,
+                float* sums_part, cudaStream_t stream) {
+  const size_t bytes = wide_smem_floats(m, d, R) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      se_iso_stats_kernel_wide<R, kComp>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_tiles = (n + R - 1) / R;
+  se_iso_stats_kernel_wide<R, kComp><<<n_ctas, kThreads, bytes, stream>>>(
+      X, y, mask, z, u_inv, n, d, m, q, log_sf2, sigma2, tiles_per_cta, n_tiles,
+      gram_part, sums_part);
   return (int)cudaGetLastError();
 }
 
@@ -530,24 +604,32 @@ int launch(const float* X, const float* y, const float* mask, const float* z,
     TILED(6);
     default: break;
   }
-#undef TILED
-  const size_t bytes = wide_smem_floats(m, d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      se_iso_stats_kernel_wide<kComp>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const long long n_tiles = (n + kRows - 1) / kRows;
-  se_iso_stats_kernel_wide<kComp><<<n_ctas, kThreads, bytes, stream>>>(
-      X, y, mask, z, u_inv, n, d, m, q, log_sf2, sigma2, tiles_per_cta, n_tiles,
-      gram_part, sums_part);
-  return (int)cudaGetLastError();
+#define WIDE(R)                                                                             \
+  case R:                                                                                   \
+    return launch_wide<R, kComp>(X, y, mask, z, u_inv, n, d, m, q, log_sf2, sigma2, n_ctas,  \
+                                 tiles_per_cta, gram_part, sums_part, stream)
+  switch (wide_rows(m, d)) {
+    WIDE(64);
+    WIDE(48);
+    WIDE(32);
+    WIDE(24);
+    WIDE(16);
+    WIDE(8);
+    default: break;
+  }
+#undef WIDE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows per tile; the wrapper sizes the grid and the partials from it.
+// Rows per tile of the tiled route; the wrapper sizes the grid from it.
 int se_iso_stats_rows_per_tile() { return kRows; }
+
+// Rows per tile of the wide route at (m, d): 64, 48, 32, 24, 16 or 8.
+int se_iso_stats_wide_rows(int m, int d) { return wide_rows(m, d); }
 
 // The route at (m, d): G = ceil((m + 1) / 64) of the tiled route, or 0 for
 // the wide route.
@@ -562,7 +644,8 @@ const char* se_iso_stats_error_string(int err) {
 
 // The tiled route's n_ctas CTAs stride over the ceil(n / 64) row tiles
 // (n_ctas <= tiles; tiles_per_cta is not read); on the wide route CTA c
-// reduces tiles [c * tiles_per_cta, (c + 1) * tiles_per_cta), and every CTA
+// reduces tiles [c * tiles_per_cta, (c + 1) * tiles_per_cta) of the
+// ceil(n / R) tiles of R = se_iso_stats_wide_rows(m, d) rows, and every CTA
 // must own at least one tile.
 // gram_part: (n_ctas, 2, 16, nblk, 4) f32, hi then lo: float4 v (entries
 // v / 2, 4 (v % 2) .. + 3) of each of the nblk = nb8 (nb8 + 1) / 2 upper 8 x 8

@@ -41,7 +41,7 @@ __device__ __forceinline__ void prefetch_block(const float* part, int nblk, int 
     asm volatile("prefetch.global.L2 [%0];" ::"l"(p + (size_t)v * nblk));
 }
 
-// The upper 8 x 8 blocks of S'T into the CTA's partial part: S is the kRows
+// The upper 8 x 8 blocks of S'T into the CTA's partial part: S is the kR
 // rows (row-major, stride mp) at S0, then, when S1 is not null, those at S1.
 // T is S itself (the symmetric S'S) when T0 is null; else the tile at T0 for
 // S0, and the one as far from S1 for S1.
@@ -55,7 +55,7 @@ __device__ __forceinline__ void prefetch_block(const float* part, int nblk, int 
 // load of it ahead, and one pair in flight a thread leaves the update bound
 // by latency), reads them from L2 (another CTA may have written them) and
 // asks for no prefetch.
-template <bool kComp, int kBatch = 1>
+template <bool kComp, int kBatch = 1, int kR = kRows>
 __device__ __forceinline__ void add_gram(const float* S0, const float* S1, int mp,
                                          float* __restrict__ part, bool first,
                                          const float* T0 = nullptr) {
@@ -78,7 +78,7 @@ __device__ __forceinline__ void add_gram(const float* S0, const float* S1, int m
     for (const float* S = S0; S; S = S == S0 ? S1 : nullptr) {
       // 4 rows a trip: the next rows' loads go out under this row's FFMAs
 #pragma unroll 4
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < kR; ++r) {
         const float4* ra = reinterpret_cast<const float4*>(&S[r * mp + bi * kBlk]);
         const float4* rb = reinterpret_cast<const float4*>(&S[r * mp + bj * kBlk + t_off]);
         float4 a0 = ra[0], a1 = ra[1], b0 = rb[0], b1 = rb[1];

@@ -1,9 +1,11 @@
-"""Pairwise squared distances and their cotangent: the counterpart of
-``gpr_tpu/kernels/base.py``."""
+"""Pairwise squared distances and their cotangent, the field helpers every
+family shares, and the public helpers of the kernel protocol: the
+counterpart of ``gpr_tpu/kernels/base.py``."""
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from ..config import config
 from ..numerics.linalg import matmul
@@ -24,6 +26,26 @@ def sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b2 = torch.sum(torch.square(b), dim=-1)
     d2 = a2[:, None] - 2.0 * matmul(a, b.T) + b2[None, :]
     return torch.clamp(d2, min=0.0)
+
+
+def set_hypers(module: nn.Module, device, dtype, **values) -> None:
+    """Give ``module`` each of ``values`` as an ``nn.Parameter`` on
+    ``device`` in ``dtype`` (None stays None: an option that is off)."""
+    kw = {"device": device, "dtype": dtype}
+    for name, value in values.items():
+        setattr(module, name, None if value is None else nn.Parameter(
+            torch.as_tensor(value, **kw).clone()))
+
+
+def view_of(cls, **fields):
+    """An instance of ``cls`` whose fields ARE the given values (plain
+    attributes, not fresh parameters), so gradients flow back to whatever
+    they were computed from: the body of every family's ``of``."""
+    self = cls.__new__(cls)
+    nn.Module.__init__(self)
+    for name, value in fields.items():
+        setattr(self, name, value)
+    return self
 
 
 def hyper_fields(kernel) -> dict:
@@ -74,3 +96,21 @@ def sqdist_cotangent_reduce(c: torch.Tensor, X: torch.Tensor,
     c_dot_d2 = torch.sum(cxx) + torch.dot(cs, zz) - 2.0 * torch.sum(cX * Z)
     z_bar = 2.0 * (cs[:, None] * Z - cX)
     return z_bar, c_dot_d2, torch.sum(cs)
+
+
+def weighted_eval(kernel, X, Z, coeffs) -> torch.Tensor:
+    """K(X, Z) @ coeffs: the reference's ``Inputs.weighted_eval``
+    (lib/interfaces.ml:193-198)."""
+    return matmul(kernel.k_cross(X, Z), coeffs)
+
+
+def weighted_eval_one(kernel, x, Z, coeffs) -> torch.Tensor:
+    """k(x, Z) . coeffs for one input x: the reference's
+    ``Input.weighted_eval`` (lib/interfaces.ml:131-137)."""
+    return torch.dot(kernel.k_cross(x[None, :], Z)[0], coeffs)
+
+
+def choose_subset(X, indexes) -> torch.Tensor:
+    """The rows ``indexes`` of X: the reference's ``Inputs.choose_subset``
+    (lib/utils.ml:60-75; column-major there, row-major here)."""
+    return X[torch.as_tensor(indexes, device=X.device)]

@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from ..numerics.linalg import matmul
-from .base import sqdist
+from .base import set_hypers, sqdist, view_of
 
 _OPTIONS = ("tproj", "log_hetero_skedasticity", "log_multiscales_m05")
 
@@ -56,13 +56,10 @@ class SeFat(nn.Module):
         work): with no GPU the default raises rather than falling back.
         ``None`` turns an option off."""
         super().__init__()
-        kw = {"device": device, "dtype": dtype}
         self.d = int(d)
-        self.log_sf2 = nn.Parameter(torch.as_tensor(log_sf2, **kw).clone())
-        for name, value in zip(_OPTIONS, (tproj, log_hetero_skedasticity,
-                                          log_multiscales_m05)):
-            setattr(self, name, None if value is None else nn.Parameter(
-                torch.as_tensor(value, **kw).clone()))
+        set_hypers(self, device, dtype, log_sf2=log_sf2, tproj=tproj,
+                   log_hetero_skedasticity=log_hetero_skedasticity,
+                   log_multiscales_m05=log_multiscales_m05)
 
     @classmethod
     def of(cls, d: int, log_sf2: torch.Tensor, tproj=None,
@@ -70,14 +67,9 @@ class SeFat(nn.Module):
         """A kernel whose hypers ARE the given tensors (plain attributes,
         not fresh parameters), so gradients flow back to whatever they were
         computed from."""
-        self = cls.__new__(cls)
-        nn.Module.__init__(self)
-        self.d = int(d)
-        self.log_sf2 = log_sf2
-        self.tproj = tproj
-        self.log_hetero_skedasticity = log_hetero_skedasticity
-        self.log_multiscales_m05 = log_multiscales_m05
-        return self
+        return view_of(cls, d=int(d), log_sf2=log_sf2, tproj=tproj,
+                       log_hetero_skedasticity=log_hetero_skedasticity,
+                       log_multiscales_m05=log_multiscales_m05)
 
     @classmethod
     def default_params(cls, X: torch.Tensor, n_inducing: int,

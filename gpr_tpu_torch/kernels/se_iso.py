@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .base import sqdist, sqdist_cotangent_reduce
+from .base import set_hypers, sqdist, sqdist_cotangent_reduce, view_of
 
 
 class SeIso(nn.Module):
@@ -30,20 +30,14 @@ class SeIso(nn.Module):
         """On the card unless ``device`` says otherwise (``"cpu"`` for CPU
         work): with no GPU the default raises rather than falling back."""
         super().__init__()
-        kw = {"device": device, "dtype": dtype}
-        self.log_ell = nn.Parameter(torch.as_tensor(log_ell, **kw).clone())
-        self.log_sf2 = nn.Parameter(torch.as_tensor(log_sf2, **kw).clone())
+        set_hypers(self, device, dtype, log_ell=log_ell, log_sf2=log_sf2)
 
     @classmethod
     def of(cls, log_ell: torch.Tensor, log_sf2: torch.Tensor) -> "SeIso":
         """A kernel whose hypers ARE ``log_ell`` and ``log_sf2`` (plain
         tensor attributes, not fresh parameters), so gradients flow back to
         whatever they were computed from."""
-        self = cls.__new__(cls)
-        nn.Module.__init__(self)
-        self.log_ell = log_ell
-        self.log_sf2 = log_sf2
-        return self
+        return view_of(cls, log_ell=log_ell, log_sf2=log_sf2)
 
     @classmethod
     def default_params(cls, X: torch.Tensor, n_inducing: int,

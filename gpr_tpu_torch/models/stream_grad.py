@@ -24,6 +24,8 @@ and each tile's VG = Knm UG reads Knm with no serial dependency on V.
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -72,9 +74,12 @@ def _zero_carry(shapes, dtype, device):
              torch.zeros(sh, dtype=dtype, device=device)) for sh in shapes]
 
 
-def _forward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, acc_dtype):
+def _forward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, acc_dtype,
+                  per_row=False):
     """Forward statistics over pre-blocked rows (nb, B, ...):
     (gram, u_vec, log_det_s, y_is_y, is_r_sum, n) in ``acc_dtype``.
+    ``sigma2`` is the scalar noise variance or, when ``per_row``, per-row
+    noise variances blocked like y (nb, B), as the JAX scan's ``nzb``.
 
     When the accumulators are f32 every carry is a compensated (hi, lo)
     pair, folded to one float at the end: per-tile rounding stays, but the
@@ -83,10 +88,13 @@ def _forward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, acc_dtype):
     m = z.shape[0]
     comp = acc_dtype == torch.float32
     carry = _zero_carry([(m, m), (m,), (), (), (), ()], acc_dtype, z.device)
-    for x_b, y_b, mask_b in zip(xb, yb, maskb):
+    noise = sigma2 if per_row else itertools.repeat(sigma2)
+    for x_b, y_b, mask_b, noise_b in zip(xb, yb, maskb, noise):
         x_b = x_b.to(z.dtype)
         y_b = y_b.to(z.dtype)
         mask_b = mask_b.to(z.dtype)
+        if per_row:
+            noise_b = noise_b.to(z.dtype)
         knm = kernel.k_cross(x_b, z)
         kd = kernel.k_diag(x_b)
         v = matmul(knm, u_inv)
@@ -94,7 +102,7 @@ def _forward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, acc_dtype):
         # padded rows are gated on both sides of every nonlinearity, as in
         # the JAX scan body (no inf * 0 in a backward pass)
         live = mask_b > 0
-        s = torch.where(live, r + sigma2, torch.ones_like(r))
+        s = torch.where(live, r + noise_b, torch.ones_like(r))
         is_ = mask_b / s
         sqrt_is = torch.where(
             live, torch.sqrt(torch.where(live, is_, torch.ones_like(is_))),

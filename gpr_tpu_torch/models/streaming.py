@@ -9,17 +9,28 @@ I + G, whose eigenvalues are >= 1, and log|B| - log|Km| = log|I + G|.
 The pass runs one of three implementations (``impl``):
 
 * ``"fused_acc"`` -- the CUDA kernel behind
-  :func:`gpr_tpu_torch.ops.se_iso_stream_stats_fused_acc` (the default for
-  an SE-iso kernel on f32 CUDA tensors; the counterpart of the JAX
-  package's ``impl="pallas"``);
+  :func:`gpr_tpu_torch.ops.se_iso_stream_stats_fused_acc` (the counterpart
+  of the JAX package's ``impl="pallas"``);
 * ``"fused"`` -- the per-block-partials kernel behind
   :func:`gpr_tpu_torch.ops.se_iso_stream_stats_fused`;
 * ``"reference"`` -- the plain blocked loop of ``stream_grad._forward_scan``
-  (the default for every other family, for CPU tensors and for f64 on the
-  card, as the JAX package's default ``impl="scan"``).
+  (the JAX package's default ``impl="scan"``).
 
-The two kernel impls compute the SE-iso kernel only: asked for with
-another family they raise, as the JAX package's Pallas path does.
+With ``impl=None`` an SE-iso kernel on f32 CUDA tensors with a scalar
+sigma2 takes ``"fused_acc"`` (``ops.fused_stats.default_route``): the
+forward kernel where it fits the device (m up to about 5,980 at any d on an
+H100), and, when a gradient will be taken, the backward kernel too (m up to
+about 2,870).  Everything else takes the plain loop: the other families,
+CPU tensors, f64 on the card, per-row sigma2, and an (m, d) past those
+limits.  The two kernel impls compute the SE-iso kernel with a scalar
+sigma2 only: asked for otherwise they raise, as the JAX package's Pallas
+path does.
+
+``sigma2`` is the scalar noise variance, or an (n,) vector of per-row
+noise variances (the heteroskedastic evidence): a vector streams through
+the plain loop under autograd (``grad_impl="ad"``, taken by itself, as in
+the JAX package), blocked like y, and the result is differentiable with
+respect to it.
 
 Gradients (``grad_impl``): ``"custom"`` (the default) is the hand VJP of
 ``stream_grad.StreamStatsFn``, whose backward runs the backward kernel
@@ -67,11 +78,23 @@ class StreamStats:
     n: torch.Tensor  # number of (real) rows
 
 
-def _resolve_impl(impl, X, kernel, grad_impl="custom"):
+def _resolve_impl(impl, X, kernel, grad_impl="custom", *, z=None,
+                  per_row=False, grad=True):
+    """The statistics' implementation for ``impl`` (None: the default
+    route; see the module docstring).  ``z``, the inducing points, gives
+    the default route its m; ``per_row`` says that sigma2 is a vector;
+    ``grad`` that a gradient will be taken through the statistics."""
     if grad_impl not in GRAD_IMPLS:
         raise ValueError(
             f"unknown grad_impl {grad_impl!r}; valid: {GRAD_IMPLS}"
         )
+    if per_row:
+        if impl not in (None, "reference"):
+            raise ValueError(
+                f"per-row sigma2 streams on impl='reference' only, got "
+                f"impl={impl!r}"
+            )
+        return "reference"
     if grad_impl == "ad":
         # the kernels have no autograd of their own: their gradient is the
         # hand VJP
@@ -83,10 +106,14 @@ def _resolve_impl(impl, X, kernel, grad_impl="custom"):
         return "reference"
     se_iso = getattr(kernel, "name", None) == "se_iso"
     if impl is None:
-        # the kernels compute SE-iso in f32: f64 on the card (the polish,
-        # the parity twin) and the other families run the plain loop
-        f32_cuda = X.is_cuda and X.dtype == torch.float32
-        return "fused_acc" if f32_cuda and se_iso else "reference"
+        if not (se_iso and X.is_cuda):
+            return "reference"
+        # imported here: ops.fused_stats imports this package
+        from ..ops.fused_stats import default_route
+
+        return default_route(z.shape[0], X.shape[1], X.dtype,
+                             torch.cuda.get_device_properties(X.device),
+                             grad=grad)
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; valid: {IMPLS}")
     if impl != "reference" and not se_iso:
@@ -110,21 +137,27 @@ def stream_stats(kernel, inducing: InducingState, sigma2, X, y, *,
 
     V tiles are formed as ``knm_tile @ U^-1`` against the inverse Cholesky
     factor, computed once.  ``mask`` (n,) of 0/1 weights excludes rows.
-    ``sigma2`` is the scalar noise variance.  Differentiable with respect
-    to the kernel's hypers, ``z``, ``sigma2`` and ``y`` (see the module
-    docstring for ``grad_impl``).
+    ``sigma2`` is the scalar noise variance or an (n,) vector of per-row
+    ones.  Differentiable with respect to the kernel's hypers, ``z``,
+    ``sigma2`` and ``y`` (see the module docstring for ``impl`` and
+    ``grad_impl``).
     """
-    impl = _resolve_impl(impl, X, kernel, grad_impl)
-    if torch.as_tensor(sigma2).ndim:
-        raise NotImplementedError(
-            "per-row sigma2 is not ported yet (ROADMAP.md, queue 1)"
-        )
-    u_inv = inv_tri_upper(inducing.chol_km)
     z = inducing.z
-    if grad_impl == "ad":
+    per_row = torch.as_tensor(sigma2).ndim == 1
+    leaves = hyper_leaves(kernel)[1]
+    grad = torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad
+        for t in (inducing.chol_km, sigma2, X, y, *leaves))
+    impl = _resolve_impl(impl, X, kernel, grad_impl, z=z, per_row=per_row,
+                         grad=grad)
+    u_inv = inv_tri_upper(inducing.chol_km)
+    if grad_impl == "ad" or per_row:
         xb, yb, maskb = _pad_blocks(X, y, mask, block_size)
+        if per_row:  # blocked like y, zero (and masked) past the rows
+            sigma2 = _pad_blocks(X, torch.as_tensor(sigma2, device=z.device),
+                                 mask, block_size)[1]
         return StreamStats(*_forward_scan(kernel, z, u_inv, sigma2, xb, yb,
-                                          maskb, z.dtype))
+                                          maskb, z.dtype, per_row))
     sigma2 = torch.as_tensor(sigma2, dtype=z.dtype, device=z.device)
     if impl != "reference":
         # the kernels take row-major data (solve_triangular's result on
@@ -134,8 +167,7 @@ def stream_stats(kernel, inducing: InducingState, sigma2, X, y, *,
         z, u_inv, X, y, mask = (None if t is None else t.contiguous()
                                 for t in (z, u_inv, X, y, mask))
     return StreamStats(*StreamStatsFn.apply(
-        kernel, block_size, impl, z, u_inv, sigma2, X, y, mask,
-        *hyper_leaves(kernel)[1],
+        kernel, block_size, impl, z, u_inv, sigma2, X, y, mask, *leaves,
     ))
 
 
@@ -191,8 +223,9 @@ def streaming_log_evidence(kernel, z, sigma2, X, y, *,
                            impl: str | None = None,
                            grad_impl: str = "custom") -> torch.Tensor:
     """FITC (or variational) log evidence at large n, O(block m + m^2)
-    memory.  Differentiable with respect to the kernel's hypers, ``z``,
-    ``sigma2`` and ``y``: the backward recomputes each Knm tile."""
+    memory.  ``sigma2`` is a scalar or an (n,) per-row vector.
+    Differentiable with respect to the kernel's hypers, ``z``, ``sigma2``
+    and ``y``: the custom backward recomputes each Knm tile."""
     inducing = calc_inducing(kernel, z, jitter)
     stats = stream_stats(kernel, inducing, sigma2, X, y,
                          block_size=block_size, impl=impl,

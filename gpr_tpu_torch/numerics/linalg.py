@@ -102,3 +102,15 @@ def qr_r_positive(a: torch.Tensor) -> torch.Tensor:
     sign = torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))
     sign = torch.where(sign == 0, torch.ones_like(sign), sign)
     return r * sign[..., :, None]
+
+
+def tsqr_r(a: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """R factor (positive diagonal) of an (n, m) matrix by a tall-skinny
+    QR: one QR per row block, then one of the stacked R's.  Where
+    ``n_blocks`` does not divide n, the plain ``qr_r_positive``."""
+    n, m = a.shape
+    if n % n_blocks != 0:
+        return qr_r_positive(a)
+    rs = torch.linalg.qr(a.reshape(n_blocks, n // n_blocks, m),
+                         mode="reduced").R
+    return qr_r_positive(rs.reshape(-1, m))

@@ -148,15 +148,13 @@ def load_library() -> ctypes.CDLL:
     lib.gemm_chain_smem_bytes.argtypes = [ctypes.c_int]
     lib.gemm_chain_smem_bytes.restype = ctypes.c_longlong
     for prefix in ("se_iso_stats", "se_iso_bwd"):
-        rows = getattr(lib, f"{prefix}_rows_per_tile")
-        rows.argtypes = []
-        rows.restype = ctypes.c_int
         smem = getattr(lib, f"{prefix}_smem_bytes")
         smem.argtypes = [ctypes.c_int, ctypes.c_int]
         smem.restype = ctypes.c_longlong
-        groups = getattr(lib, f"{prefix}_groups")
-        groups.argtypes = [ctypes.c_int, ctypes.c_int]
-        groups.restype = ctypes.c_int
+        for what in ("groups", "wide_rows"):
+            fn = getattr(lib, f"{prefix}_{what}")
+            fn.argtypes = [ctypes.c_int, ctypes.c_int]
+            fn.restype = ctypes.c_int
     lib.se_iso_stats_error_string.argtypes = [ctypes.c_int]
     lib.se_iso_stats_error_string.restype = ctypes.c_char_p
     return lib

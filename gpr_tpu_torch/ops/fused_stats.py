@@ -18,9 +18,10 @@ fallback between the two: a CUDA launch that fails raises.
 
 ``block_size`` is the number of rows of one loop block of the twin.  The
 kernels take their grid from the device instead (:func:`_geometry` and
-:func:`_bwd_geometry`: one CTA per SM), and only check that ``block_size``
-is a multiple of their 64-row tile.  Each wrapper counts its kernel
-launches in ``.launches``.
+:func:`_bwd_geometry`: one CTA per SM) and do not read it.  Each wrapper
+counts its kernel launches in ``.launches``.  :func:`default_route` is
+where the streaming path's default takes the kernels: wherever they fit
+the device.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ import torch
 
 from ..kernels.se_iso import SeIso
 from ..models.stream_grad import _backward_scan, _forward_scan, _pad_blocks
-from ..numerics.linalg import matmul
 from ._build import load_library
 
 _BLK = 8  # edge of the kernels' m x m register blocks (csrc kBlk)
@@ -44,10 +44,15 @@ BK = 16  # U^-1 rows per ring slice
 RING = 2  # stages of the tiled route's cp.async ring
 A_STRIDE = ROWS + 4  # floats per k-row of the Knm tile
 PANEL = 32  # the wide route's U^-1 panel width
+CHUNK = 64  # U^-1 rows of such a panel a ring stage holds
+WIDE_RING = 2  # stages of the wide route's U^-1 ring
+WIDE_ROWS = (64, 48, 32, 24, 16, 8)  # the wide route's rows per tile, by preference
 SMEM_OPTIN = 232_448  # bytes of shared memory a block may opt into (sm_90)
 BWD_MAX_GROUPS = 5  # the backward tiled route: G = 6 never fits
-BWD_WIDE_ROWS = 32  # rows per tile of the backward wide route
-BWD_WIDE_PANEL = 64  # its products' panel width
+BWD_WIDE_ROWS = (32, 24, 16, 8)  # the backward wide route's rows per tile
+BWD_WIDE_PANEL = 128  # its products' panel width
+BWD_CHUNK = 16  # weight rows of such a panel a ring stage holds
+BWD_WIDE_RING = 3  # stages of its weight ring
 L2_BYTES = 50 * 2 ** 20  # the H100's L2
 BWD_MAX_SHARE = 4  # CTAs that take turns on one partial, at most
 
@@ -60,6 +65,16 @@ class Geometry(NamedTuple):
     n_ctas: int  # CTAs launched, each with at least one tile
     tiles_per_cta: int  # the wide route's contiguous chunk (the most a CTA takes)
     nblk: int  # upper 8 x 8 blocks of the (m + 1)-square Gram of [V w | w y]
+    rows: int  # rows per tile
+
+
+def _wide_rows(floats, choices):
+    """The first of ``choices`` (rows per tile) whose shared memory,
+    ``floats(rows)`` floats, fits; the last where none does."""
+    for rows in choices:
+        if 4 * floats(rows) <= SMEM_OPTIN:
+            return rows
+    return choices[-1]
 
 
 def _geometry(n: int, m: int, d: int, sm_count: int) -> Geometry:
@@ -67,7 +82,11 @@ def _geometry(n: int, m: int, d: int, sm_count: int) -> Geometry:
     and d inputs on a device of ``sm_count`` SMs.  The tiled route takes
     m <= 383 where its shared memory fits, and folds two tiles into each
     update of its Gram partial where a second row tile (B) fits too; the
-    wide route every other m.  Both launch at most one CTA per SM."""
+    wide route every other m, with the most rows a tile (64, 48, 32, 24, 16
+    or 8)
+    whose shared memory fits: about m <= 5,980 at any d, and past that
+    ``smem_bytes`` exceeds what the device allows (the wrapper raises).
+    Both launch at most one CTA per SM."""
     nb8 = -(-(m + 1) // _BLK)
     nblk = nb8 * (nb8 + 1) // 2
     mp = nb8 * _BLK
@@ -80,14 +99,18 @@ def _geometry(n: int, m: int, d: int, sm_count: int) -> Geometry:
     if m <= MAX_TILED_M and tiled <= SMEM_OPTIN:
         fold = tiled + 4 * ROWS * mp <= SMEM_OPTIN
         return Geometry(groups, fold, tiled + fold * 4 * ROWS * mp, n_tiles,
-                        n_ctas, -(-n_tiles // n_ctas), nblk)
-    mk = -(-m // 4) * 4
-    wide = 4 * (ROWS * mp + mk * PANEL + d * mp + mp + ROWS * d + 2 * ROWS
-                + 32)
+                        n_ctas, -(-n_tiles // n_ctas), nblk, ROWS)
+
+    def wide(rows):  # the tile, the U^-1 ring, |z|^2, the x tile, w, wy, sums
+        return (rows * mp + WIDE_RING * CHUNK * PANEL + mp + rows * d
+                + 2 * rows + 32)
+
+    rows = _wide_rows(wide, WIDE_ROWS)
+    n_tiles = -(-n // rows)
     # contiguous chunks: every CTA must own a tile
-    tiles_per_cta = -(-n_tiles // n_ctas)
-    return Geometry(0, False, wide, n_tiles, -(-n_tiles // tiles_per_cta),
-                    tiles_per_cta, nblk)
+    tiles_per_cta = -(-n_tiles // min(sm_count, n_tiles))
+    return Geometry(0, False, 4 * wide(rows), n_tiles,
+                    -(-n_tiles // tiles_per_cta), tiles_per_cta, nblk, rows)
 
 
 class BwdGeometry(NamedTuple):
@@ -99,6 +122,7 @@ class BwdGeometry(NamedTuple):
     nblk: int  # upper 8 x 8 blocks of the m-square U^-1 cotangent
     share: int  # CTAs that take turns on one partial of that cotangent
     n_parts: int  # such partials: ceil(n_ctas / share)
+    rows: int  # rows per tile
 
 
 def _bwd_geometry(n: int, m: int, d: int, sm_count: int,
@@ -113,8 +137,10 @@ def _bwd_geometry(n: int, m: int, d: int, sm_count: int,
     4) share one partial that make all partials fit in a quarter of the L2:
     4 at m = 300 on 132 SMs and 50 MiB (8 measured slower than 1: the CTAs
     wait for their turns).  The wide route takes every other m, one partial
-    a CTA, and ``smem_bytes`` may then exceed what the device allows (the
-    wrapper raises).  Both launch at most one CTA per SM."""
+    a CTA, with the most rows a tile (32, 24, 16 or 8) whose two tiles fit:
+    about m <= 2,870 at any d, and past that ``smem_bytes`` exceeds what
+    the device allows (the wrapper raises).  Both launch at most one CTA
+    per SM."""
     nb8 = -(-m // _BLK)
     nblk = nb8 * (nb8 + 1) // 2
     mp = nb8 * _BLK
@@ -132,16 +158,44 @@ def _bwd_geometry(n: int, m: int, d: int, sm_count: int,
             share *= 2
         return BwdGeometry(groups, tiled, n_tiles, n_ctas,
                            -(-n_tiles // n_ctas), nblk, share,
-                           -(-n_ctas // share))
-    mk = -(-m // 4) * 4
-    wide = 4 * (3 * BWD_WIDE_ROWS * mp + mk * BWD_WIDE_PANEL + d * mp + 2 * mp
-                + BWD_WIDE_ROWS * d + 4 * BWD_WIDE_ROWS + 16)
-    n_tiles = -(-n // BWD_WIDE_ROWS)
+                           -(-n_ctas // share), ROWS)
+
+    def wide(rows):  # two tiles, the weight ring, |z|^2 and u-bar, the x
+        return (2 * rows * mp + BWD_WIDE_RING * BWD_CHUNK * BWD_WIDE_PANEL
+                + 2 * mp + rows * d + 4 * rows + 16)  # tile, 4 row vectors
+
+    rows = _wide_rows(wide, BWD_WIDE_ROWS)
+    n_tiles = -(-n // rows)
     # contiguous chunks: every CTA must own a tile
     tiles_per_cta = -(-n_tiles // min(sm_count, n_tiles))
     n_ctas = -(-n_tiles // tiles_per_cta)
-    return BwdGeometry(0, wide, n_tiles, n_ctas, tiles_per_cta, nblk, 1,
-                       n_ctas)
+    return BwdGeometry(0, 4 * wide(rows), n_tiles, n_ctas, tiles_per_cta,
+                       nblk, 1, n_ctas, rows)
+
+
+def _fits(props, smem):
+    """Whether ``smem`` bytes of shared memory a block fit the device."""
+    return smem <= props.shared_memory_per_block_optin
+
+
+def default_route(m: int, d: int, dtype, props, *, grad: bool = True) -> str:
+    """The streaming statistics' implementation for an SE-iso model with m
+    inducing points over d inputs, in ``dtype``, on a CUDA device of
+    properties ``props`` (``torch.cuda.get_device_properties``, or any
+    object with ``multi_processor_count``, ``L2_cache_size`` and
+    ``shared_memory_per_block_optin``): ``"fused_acc"``, kernel #1 and,
+    when ``grad`` (a gradient will be taken), #3, where the dtype is f32
+    and the shared memory of the forward's route (:func:`_geometry`) and,
+    when ``grad``, of the backward's (:func:`_bwd_geometry`) fits the
+    device, else ``"reference"``, the plain loop.  Neither depends on the
+    rows or the block size, so neither does the route."""
+    if dtype != torch.float32:
+        return "reference"
+    sm = props.multi_processor_count
+    fits = _fits(props, _geometry(1, m, d, sm).smem_bytes) and (
+        not grad or _fits(props, _bwd_geometry(
+            1, m, d, sm, props.L2_cache_size).smem_bytes))
+    return "fused_acc" if fits else "reference"
 
 
 @torch.no_grad()
@@ -201,9 +255,9 @@ def _fold_partials(gram_part):
     return blocks.permute(1, 0, 2).reshape(-1, _BLK, _BLK)
 
 
-def _validate(X, y, z, u_inv, mask, block_size, rows):
-    """Check the tensors, and ``block_size`` against the kernel's ``rows``
-    per tile; return (n, d, m)."""
+def _validate(X, y, z, u_inv, mask, block_size):
+    """Check the tensors and ``block_size`` (positive: it sets the twin's
+    blocks, the kernels do not read it); return (n, d, m)."""
     n, d = X.shape
     m = z.shape[0]
     _check("X", X, (n, d))
@@ -214,16 +268,13 @@ def _validate(X, y, z, u_inv, mask, block_size, rows):
         _check("mask", mask, (n,))
     if n == 0:
         raise ValueError("X has no rows")
-    if block_size <= 0 or block_size % rows:
-        raise ValueError(
-            f"block_size must be a positive multiple of {rows} on CUDA, got "
-            f"{block_size}"
-        )
+    if block_size <= 0:
+        raise ValueError(f"block_size must be positive, got {block_size}")
     return n, d, m
 
 
 def _check_smem(props, smem, m, d):
-    if smem > props.shared_memory_per_block_optin:
+    if not _fits(props, smem):
         raise ValueError(
             f"m={m}, d={d} needs {smem} bytes of shared memory per block; "
             f"the device allows {props.shared_memory_per_block_optin}"
@@ -249,8 +300,7 @@ def _host_scalars(device, *values):
 def _launch(entry, comp, log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
             block_size, acc_dtype):
     lib = load_library()
-    n, d, m = _validate(X, y, z, u_inv, mask, block_size,
-                        lib.se_iso_stats_rows_per_tile())
+    n, d, m = _validate(X, y, z, u_inv, mask, block_size)
     props = torch.cuda.get_device_properties(X.device)
     geo = _geometry(n, m, d, props.multi_processor_count)
     _check_smem(props, geo.smem_bytes, m, d)
@@ -284,9 +334,9 @@ def se_iso_stream_stats_fused_acc(log_ell, log_sf2, z, u_inv, sigma2, X, y,
     On CUDA one CTA per SM walks 64-row tiles and carries G, u and the
     four scalars as two-sum (hi, lo) pairs; the wrapper folds and sums the
     per-CTA partials in f64 and returns them in ``acc_dtype``.
-    ``block_size`` sets the twin's blocks; on CUDA it must be a multiple of
-    64 and no longer sets the grid.  ``u_inv`` must be upper triangular
-    (the inverse of the upper Cholesky factor): only that triangle is read.
+    ``block_size`` sets the twin's blocks; on CUDA it must be positive and
+    is not read.  ``u_inv`` must be upper triangular (the inverse of the
+    upper Cholesky factor): only that triangle is read.
     """
     if not X.is_cuda:
         return _se_iso_stats_reference(
@@ -346,34 +396,30 @@ def _se_iso_bwd_reference(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
 def _launch_bwd(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask, gbar, ubar,
                 lds_bar, yiy_bar, isr_bar, block_size, acc_dtype, need_y):
     lib = load_library()
-    n, d, m = _validate(X, y, z, u_inv, mask, block_size,
-                        lib.se_iso_bwd_rows_per_tile())
+    n, d, m = _validate(X, y, z, u_inv, mask, block_size)
     props = torch.cuda.get_device_properties(X.device)
     geo = _bwd_geometry(n, m, d, props.multi_processor_count,
                         props.L2_cache_size)
     _check_smem(props, geo.smem_bytes, m, d)
     f32, f64 = torch.float32, torch.float64
     # once per backward, outside the kernel: Gs = G-bar + G-bar', and U^-T
-    # row-major for K-bar = V-bar U^-T.  The tiled route forms VG = V Gs
-    # itself and reads whole rows of both triangles; the wide route takes
-    # UG = U^-1 Gs, as the JAX wrapper does.
-    gsym = (gbar + gbar.mT).to(f32)
+    # row-major for K-bar = V-bar U^-T.  Both routes form VG = V Gs
+    # themselves (the JAX wrapper passes U^-1 Gs); the tiled route reads
+    # whole rows of both triangles.
+    gsym = (gbar + gbar.mT).to(f32).contiguous()
     if geo.groups:
         u_inv = u_inv.triu()
-        g_mat = gsym.contiguous()
-    else:
-        g_mat = matmul(u_inv, gsym).contiguous()
     u_inv_t = u_inv.mT.contiguous()
     ubar = ubar.to(f32).contiguous()
     dev = X.device
-    if geo.groups:  # float4 v of block b at [v, b]; c'[X | 1 | xx] (d + 2, mp)
-        ui_part = torch.empty(geo.n_parts, 2, _BLK * _BLK // 4, geo.nblk, 4,
-                              dtype=f32, device=dev)
+    # float4 v of block b at [v, b]; c'[X | 1 | xx] (d + 2, mp) on the tiled
+    # route, (m, d + 2) on the wide
+    ui_part = torch.empty(geo.n_parts, 2, _BLK * _BLK // 4, geo.nblk, 4,
+                          dtype=f32, device=dev)
+    if geo.groups:
         caug_part = torch.empty(geo.n_ctas, 2, d + 2, -(-m // _BLK) * _BLK,
                                 dtype=f32, device=dev)
     else:
-        ui_part = torch.empty(geo.n_parts, 2, geo.nblk, _BLK, _BLK, dtype=f32,
-                              device=dev)
         caug_part = torch.empty(geo.n_ctas, 2, m, d + 2, dtype=f32, device=dev)
     sums_part = torch.empty(geo.n_ctas, 2, 2, dtype=f32, device=dev)
     # the tickets of the CTAs that share a partial start at zero
@@ -390,7 +436,7 @@ def _launch_bwd(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask, gbar, ubar,
             X.data_ptr(), y.data_ptr(),
             None if mask is None else mask.data_ptr(),
             z.data_ptr(), u_inv.data_ptr(), u_inv_t.data_ptr(),
-            g_mat.data_ptr(), ubar.data_ptr(), n, d, m, *scal,
+            gsym.data_ptr(), ubar.data_ptr(), n, d, m, *scal,
             geo.n_ctas, geo.tiles_per_cta, geo.share,
             None if turn is None else turn.data_ptr(), ui_part.data_ptr(),
             caug_part.data_ptr(), sums_part.data_ptr(),
@@ -399,9 +445,7 @@ def _launch_bwd(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask, gbar, ubar,
     _raise_on(lib, err, "se_iso_bwd")
     # fold hi + lo and reduce across CTAs in f64; then the SE-iso pullback
     # of kernels/se_iso.py::k_cross_vjp from c'[X | 1 | xx]
-    blocks = (_fold_partials(ui_part) if geo.groups
-              else ui_part.sum(dim=(0, 1), dtype=f64))
-    ui_bar = _dense_from_blocks(blocks, -(-m // _BLK),
+    ui_bar = _dense_from_blocks(_fold_partials(ui_part), -(-m // _BLK),
                                 symmetric=False)[:m, :m].triu()
     caug = caug_part.sum(dim=(0, 1), dtype=f64)
     if geo.groups:  # (d + 2, mp), zero past column m
@@ -431,7 +475,8 @@ def se_iso_stream_bwd_fused(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
     in ``acc_dtype``; ``y_bar`` (n,) is None unless ``need_y``.
 
     On CUDA one CTA per SM walks row tiles (:func:`_bwd_geometry`: 64 rows
-    on the tiled route, m <= 320 at d = 8; 32 on the wide route), recomputes
+    on the tiled route, m <= 320 at d = 8; 32, 24, 16 or 8 on the wide
+    route, m up to about 2,870), recomputes
     Knm, V = Knm U^-1 and VG = V (G-bar + G-bar'), chains the cotangents and
     carries two-sum (hi, lo) partials of u_inv_bar, of c'[X | 1 | xx]
     (c = K-bar * Knm, the SE-iso pullback's one reduction) and of the
@@ -439,7 +484,7 @@ def se_iso_stream_bwd_fused(log_ell, log_sf2, z, u_inv, sigma2, X, y, mask,
     partial a CTA would overflow a quarter of the L2, up to 4 neighbouring
     CTAs take turns on one, in a fixed order, and the launch is
     cooperative.  ``block_size`` sets the twin's blocks; on CUDA it must be
-    a multiple of 64 and no longer sets the grid.  ``u_inv`` must be upper
+    positive and is not read.  ``u_inv`` must be upper
     triangular, and the kernel returns only the upper triangle of u_inv_bar
     (zero below): the triangular solve that forms U^-1 reads only that
     triangle of its cotangent.  The twin returns the full product.

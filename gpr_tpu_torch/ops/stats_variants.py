@@ -76,8 +76,8 @@ EDITS = {
                           "      mma_slice<G>(acc, A + s * kBK * kAStride, ring + read_stage * "
                           "stage);")],
     "no L2 prefetch": [("  if (!kComp || b >= nblk) return;", "  return;")],
-    "Gram rows one a trip": [("#pragma unroll 4\n      for (int r = 0; r < kRows; ++r) {",
-                              "      for (int r = 0; r < kRows; ++r) {")],
+    "Gram rows one a trip": [("#pragma unroll 4\n      for (int r = 0; r < kR; ++r) {",
+                              "      for (int r = 0; r < kR; ++r) {")],
     "block-major partials": [
         ("    float4* hi4 = reinterpret_cast<float4*>(part) + b;",
          "    float4* hi4 = reinterpret_cast<float4*>(part) + (size_t)b * kVecs;"),

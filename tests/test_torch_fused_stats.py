@@ -170,11 +170,11 @@ def cuda_device():
 @pytest.mark.parametrize("n,masked,m", [(4096, 0, 300), (1000, 37, 37),
                                          (4096, 0, 64), (1000, 37, 65),
                                          (4096, 100, 129), (4096, 0, 383),
-                                         (4096, 0, 400)])
+                                         (4096, 0, 400), (1000, 37, 1000)])
 def test_cuda_kernel_matches_twin(rng, cuda_device, wrapper, n, masked, m):
     """The f32 kernel against the f64 twin on the same (f32) inputs: the
     tiled route at G = 1, 2, 3, 5 and 6 column groups, the wide route at
-    m = 400."""
+    m = 400 (64-row tiles) and 1,000 (48-row tiles)."""
     X, y, Z, mask = _setup(rng, n=n, d=8, m=m, masked=masked)
     f32 = np.float32
     X, y, Z = X.astype(f32), y.astype(f32), Z.astype(f32)
@@ -233,14 +233,17 @@ def _bwd_case(rng, cuda_device, n, m, masked, d=8):
 def test_cuda_bwd_kernel_matches_twin(rng, cuda_device):
     """The f32 backward kernel against the f64 twin on the same (f32)
     inputs: the tiled route at G = 1, 2, 3 and 5 column groups (m = 320 its
-    last), the wide route at m = 336 (its last at d = 8), with and without a
-    mask and y_bar; m = 400 fits neither route and raises."""
+    last), the wide route at m = 336 and 400 (32-row tiles) and 1,000 at
+    d = 20 (24; at d = 8 even the f32 twin's z-bar lies 2e-3 from the f64
+    twin's), with and without a mask and y_bar; m = 3,000 fits no route
+    and raises."""
     fn = tops.se_iso_stream_bwd_fused
-    for n, masked, m, need_y in [(4096, 0, 64, True), (1000, 37, 65, True),
-                                 (4096, 100, 129, False),
-                                 (4096, 0, 300, True), (1000, 37, 320, True),
-                                 (4096, 0, 336, True)]:
-        dev, cot, ref, cot64 = _bwd_case(rng, cuda_device, n, m, masked)
+    for n, masked, m, need_y, d in [
+            (4096, 0, 64, True, 8), (1000, 37, 65, True, 8),
+            (4096, 100, 129, False, 8), (4096, 0, 300, True, 8),
+            (1000, 37, 320, True, 8), (4096, 0, 336, True, 8),
+            (1000, 37, 400, False, 8), (2048, 0, 1000, True, 20)]:
+        dev, cot, ref, cot64 = _bwd_case(rng, cuda_device, n, m, masked, d)
         before = fn.launches
         out = fn(*dev, *cot, block_size=1024, acc_dtype=torch.float64,
                  need_y=need_y)
@@ -256,24 +259,85 @@ def test_cuda_bwd_kernel_matches_twin(rng, cuda_device):
                 o, w = o.triu(), w.triu()
             err = float(torch.linalg.norm(o - w) / torch.linalg.norm(w))
             assert err <= 1e-4, (m, i, err)
-    dev, cot, _, _ = _bwd_case(rng, cuda_device, 256, 400, 0)
+    dev, cot, _, _ = _bwd_case(rng, cuda_device, 256, 3000, 0)
     with pytest.raises(ValueError, match="shared memory"):
         fn(*dev, *cot, block_size=1024)
 
 
 @pytest.mark.cuda
-def test_cuda_block_size_must_be_a_multiple_of_64(rng, cuda_device):
-    """On CUDA tensors ``block_size`` no longer sets the grid, but every
-    wrapper still holds it to a multiple of the kernels' 64-row tile."""
+def test_cuda_any_positive_block_size(rng, cuda_device):
+    """On CUDA tensors ``block_size`` sets neither the grid nor anything
+    else: every wrapper takes any positive block, not only a multiple of
+    the kernels' 64-row tile, and returns what it returns at 64 (the
+    streaming path's default route sends any block to the kernels);
+    a block that is not positive raises."""
     dev, cot, _, _ = _bwd_case(rng, cuda_device, 256, 37, 0)
-    for bad in (32, 96, 100, 0):
-        with pytest.raises(ValueError, match="multiple of 64"):
+    want_bwd = tops.se_iso_stream_bwd_fused(*dev, *cot, block_size=64)
+    want = {name: getattr(tops, name)(*dev, block_size=64)
+            for name in WRAPPERS}
+    for odd in (32, 96, 100, 1000):
+        got = tops.se_iso_stream_bwd_fused(*dev, *cot, block_size=odd)
+        assert all(torch.equal(g, w) for g, w in zip(got, want_bwd)), odd
+        for name in WRAPPERS:
+            got = getattr(tops, name)(*dev, block_size=odd)
+            assert all(torch.equal(g, w)
+                       for g, w in zip(got, want[name])), (name, odd)
+    for bad in (0, -64):
+        with pytest.raises(ValueError, match="positive"):
             tops.se_iso_stream_bwd_fused(*dev, *cot, block_size=bad)
         for name in WRAPPERS:
-            with pytest.raises(ValueError, match="multiple of 64"):
+            with pytest.raises(ValueError, match="positive"):
                 getattr(tops, name)(*dev, block_size=bad)
-    assert tops.se_iso_stream_bwd_fused(*dev, *cot, block_size=64)[2].shape \
-        == (37, 8)
+    assert want_bwd[2].shape == (37, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,block,kernels", [(300, 8, 1000, True),
+                                               (300, 8, 8192, True),
+                                               (400, 8, 8192, True),
+                                               (1000, 20, 8192, True),
+                                               (3000, 8, 8192, False)])
+def test_cuda_default_route(rng, cuda_device, m, d, block, kernels):
+    """streaming_log_evidence with impl=None on f32 CUDA tensors launches
+    kernels #1 and #3 where both fit the card (at any block, m up to 2,880
+    at d = 8) and neither past that; its value and gradients equal the
+    plain loop's, to f32 rounding on the kernels and to the bit on the
+    loop.  Without a gradient #1 alone launches, m = 3,000 too."""
+    X, y, Z, _ = _setup(rng, n=4096, d=d, m=m)
+    f32 = np.float32
+    t = lambda a: torch.as_tensor(a.astype(f32), device=cuda_device)  # noqa: E731
+    jitter = 1e-6 if m <= 1000 else 1e-3  # Km of 3,000 points needs more
+
+    def value_and_grad(impl):
+        kernel = SeIso(0.3, 0.1, device=cuda_device, dtype=torch.float32)
+        z = t(Z).requires_grad_(True)
+        s2 = torch.tensor(0.4, device=cuda_device, requires_grad=True)
+        val = streaming_log_evidence(kernel, z, s2, t(X), t(y), impl=impl,
+                                     block_size=block, jitter=jitter)
+        return val, torch.autograd.grad(val, (kernel.log_ell,
+                                              kernel.log_sf2, z, s2))
+
+    fwd, bwd = tops.se_iso_stream_stats_fused_acc, tops.se_iso_stream_bwd_fused
+    before = (fwd.launches, bwd.launches)
+    with torch.no_grad():
+        served = streaming_log_evidence(
+            SeIso(0.3, 0.1, device=cuda_device, dtype=torch.float32), t(Z),
+            0.4, t(X), t(y), block_size=block, jitter=jitter)
+    assert (fwd.launches - before[0], bwd.launches - before[1]) == (1, 0)
+    assert bool(torch.isfinite(served))
+    before = (fwd.launches, bwd.launches)
+    val, grads = value_and_grad(None)
+    launched = (fwd.launches - before[0], bwd.launches - before[1])
+    assert launched == ((1, 1) if kernels else (0, 0))
+    want, want_grads = value_and_grad("reference")
+    if not kernels:
+        assert torch.equal(val, want)
+        assert all(torch.equal(g, w) for g, w in zip(grads, want_grads))
+        return
+    assert abs(float(val.detach() - want.detach())) <= 2e-5 * abs(float(
+        want.detach()))
+    for g, w in zip(grads, want_grads):
+        assert float(torch.linalg.norm(g - w) / torch.linalg.norm(w)) <= 1e-3
 
 
 def test_build_is_keyed_by_sources_and_failure_raises(tmp_path, monkeypatch):

@@ -6,14 +6,17 @@ import sys
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent / "gpr_tpu_torch"
-# modules of the training leg, the roofline path, the Quick-start path and
-# the command-line path, named so that a move or a rename cannot drop them
-# from the scan unnoticed
+# modules of the training leg, the roofline path, the Quick-start path, the
+# command-line path and the base kernel families, named so that a move or a
+# rename cannot drop them from the scan unnoticed
 NEWER = ("models/fitc.py", "optim/lbfgs.py", "optim/train.py",
          "optim/polish.py", "ops/gemm_chain.py", "datasets.py",
          "models/predict.py", "models/stats.py", "models/sample.py",
          "models/loo.py", "optim/sgd_smd.py", "io/resume.py", "cli.py",
-         "io/native.py", "kernels/se_fat.py")
+         "io/native.py", "kernels/se_fat.py", "kernels/se_ard.py",
+         "kernels/matern.py", "kernels/rq.py", "kernels/periodic.py",
+         "kernels/cosine.py", "kernels/lin_one.py", "kernels/lin_ard.py",
+         "kernels/const.py", "numerics/block_diag.py")
 
 
 def _jax_imports(path):
@@ -55,6 +58,14 @@ def test_import_loads_no_jax():
         "from gpr_tpu_torch.datasets import gen_data\n"
         "import gpr_tpu_torch.cli, gpr_tpu_torch.io.native\n"
         "from gpr_tpu_torch.kernels.se_fat import SeFat\n"
+        "from gpr_tpu_torch.kernels import (Const, Cosine, LinArd, LinOne, "
+        "Matern32, Matern52, Periodic, RatQuad, SeArd, weighted_eval, "
+        "weighted_eval_one, choose_subset)\n"
+        "import gpr_tpu_torch.kernels.se_ard, gpr_tpu_torch.kernels.matern\n"
+        "import gpr_tpu_torch.kernels.rq, gpr_tpu_torch.kernels.periodic\n"
+        "import gpr_tpu_torch.kernels.cosine, gpr_tpu_torch.kernels.const\n"
+        "import gpr_tpu_torch.kernels.lin_one, gpr_tpu_torch.kernels.lin_ard\n"
+        "from gpr_tpu_torch.numerics import block_diag, tsqr_r\n"
         "assert gpr_tpu_torch.io.native.get_lib() is not None\n"
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "

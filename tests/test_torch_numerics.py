@@ -136,7 +136,7 @@ def test_resolve_family():
     assert resolve_family("se_iso") is SeIso
     assert resolve_family("se_fat").name == "se_fat"
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-        resolve_family("se_ard")
+        resolve_family("sum(se_iso,lin_ard)")
 
 
 @pytest.mark.parametrize("jitter", [None, 1e-6])

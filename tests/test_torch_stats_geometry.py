@@ -2,10 +2,10 @@
 (ops/fused_stats.py).
 
 The kernels themselves run only on the card (chip_smoke.py holds
-``_geometry``'s and ``_bwd_geometry``'s shared memory and route equal to
-the library's for every m in 1..400); here the route, the padded column
-groups, the shared memory, the grid and the partials the wrapper allocates
-are checked on the CPU.
+``_geometry``'s and ``_bwd_geometry``'s shared memory, route and rows a
+tile equal to the library's for every m in 1..1200 and at the wide routes'
+limits); here the route, the padded column groups, the shared memory, the
+grid and the partials the wrapper allocates are checked on the CPU.
 """
 
 import numpy as np
@@ -33,6 +33,14 @@ def _held_bytes(m):
     return 4 * 64 * -(-(m + 1) // 8) * 8
 
 
+def _wide_bytes(m, d, rows):
+    """The wide route at ``rows`` rows a tile: the (rows, mp) tile, two
+    64 x 32 chunks of U^-1 (the ring), |z|^2, the x tile, w and w y, the
+    warp sums."""
+    mp = 8 * -(-(m + 1) // 8)
+    return 4 * (rows * mp + 2 * 64 * 32 + mp + rows * d + 2 * rows + 32)
+
+
 @pytest.mark.parametrize("d", [1, 3, 8, 20, 48])
 def test_route_groups_and_fold_for_every_m(d):
     """The tiled route takes m <= 383 where its shared memory fits, with
@@ -52,6 +60,7 @@ def test_route_groups_and_fold_for_every_m(d):
             assert geo.smem_bytes <= SMEM_OPTIN
         else:
             assert (geo.groups, geo.fold) == (0, False), (m, d)
+            assert (geo.rows, geo.smem_bytes) == (64, _wide_bytes(m, d, 64))
         routes.append(geo.groups > 0)
     first_wide = routes.index(False) + 1
     assert first_wide == (320 if d == 48 else 384)
@@ -65,8 +74,10 @@ def test_shared_memory_at_the_bench_shape():
     """m = 300, d = 8: G = 5, 320 padded columns; the Knm tile (87,040 B),
     two ring stages of a U^-1 slice and an x tile (45,056 B), Z^T, |z|^2,
     the warp sums and B (77,824 B): 221,568 bytes, one CTA per SM, folding.
-    At d = 20 B no longer fits.  m = 400 takes the wide route with the first
-    kernel's layout."""
+    At d = 20 B no longer fits.  m = 400 takes the wide route with 64-row
+    tiles; it takes fewer rows a tile where they no longer fit (48, 32, 24,
+    16, 8; m = 1,000: 48), and past that (m >= 5,984 at d = 8) the wrapper
+    refuses."""
     geo = _geometry(1_000_000, 300, 8, 132)
     assert (geo.groups, geo.fold, geo.smem_bytes) == (5, True, 221_568)
     assert 320 * 68 * 4 == 87_040 and 2 * (16 * 320 + 512) * 4 == 45_056
@@ -74,8 +85,29 @@ def test_shared_memory_at_the_bench_shape():
     assert _geometry(1_000_000, 300, 20, 132)[:2] == (5, False)
     wide = _geometry(1_000_000, 400, 8, 132)
     mp = 408
-    assert (wide.groups, wide.fold, wide.smem_bytes) == (0, False, 4 * (
-        64 * mp + 400 * 32 + 8 * mp + mp + 64 * 8 + 128 + 32))
+    assert (wide.groups, wide.fold, wide.smem_bytes, wide.rows) == (
+        0, False, 4 * (64 * mp + 2 * 64 * 32 + mp + 64 * 8 + 128 + 32), 64)
+    assert wide.n_tiles == 15_625
+    for d in (1, 8, 20, 64):
+        last = {}
+        for m in range(384, 6_400):
+            geo = _geometry(1_000_000, m, d, 132)
+            for rows in (64, 48, 32, 24, 16, 8):
+                if _wide_bytes(m, d, rows) <= SMEM_OPTIN:
+                    break
+            assert (geo.rows, geo.smem_bytes) == (rows,
+                                                  _wide_bytes(m, d, rows))
+            assert geo.n_tiles == -(-1_000_000 // rows)
+            if geo.smem_bytes <= SMEM_OPTIN:
+                last[rows] = m
+        # the last m of each rows a tile: a wider x tile moves them down
+        assert [last[r] for r in (64, 48, 32, 24, 16, 8)] == (
+            {1: [823, 1_095, 1_631, 2_151, 3_167, 5_991],
+             8: [815, 1_087, 1_623, 2_143, 3_159, 5_983],
+             20: [807, 1_079, 1_607, 2_135, 3_151, 5_975],
+             64: [759, 1_031, 1_567, 2_095, 3_111, 5_935]}[d])
+    geo = _geometry(1_000_000, 1_000, 8, 132)
+    assert (geo.rows, geo.n_tiles, geo.n_ctas) == (48, 20_834, 132)
 
 
 def test_grid_is_one_cta_per_sm_and_every_cta_owns_a_tile():
@@ -138,12 +170,13 @@ def _bwd_tiled_bytes(m, d):
                 + 3 * 64 + 16)
 
 
-def _bwd_wide_bytes(m, d):
-    """Three 32-row tiles, a 64-column panel, Z^T, |z|^2 and u-bar, the x
-    tile, four row vectors and the warp sums."""
+def _bwd_wide_bytes(m, d, rows=32):
+    """Two tiles of ``rows`` rows, three 16 x 128 chunks of a weight panel
+    (the ring), |z|^2 and u-bar, the x tile, four row vectors and the warp
+    sums."""
     mp = 8 * -(-m // 8)
-    mk = 4 * -(-m // 4)
-    return 4 * (3 * 32 * mp + mk * 64 + d * mp + 2 * mp + 32 * d + 4 * 32 + 16)
+    return 4 * (2 * rows * mp + 3 * 16 * 128 + 2 * mp + rows * d + 4 * rows
+                + 16)
 
 
 @pytest.mark.parametrize("d", [1, 3, 8, 20, 48])
@@ -151,8 +184,9 @@ def test_bwd_route_and_grid_for_every_m(d):
     """The backward tiled route takes G = ceil(m / 64) <= 5 column groups
     where its two tiles, ring and vectors fit in the 232,448 bytes a block
     may opt into; every other m takes the wide route.  At d <= 8 the switch
-    is at m = 321; a wider x tile and Z^T move it down.  Both routes launch
-    min(SMs, tiles) CTAs or fewer, each with a tile."""
+    is at m = 321; a wider x tile and Z^T move it down.  The wide route
+    takes 32-row tiles up to m = 400.  Both routes launch min(SMs, tiles)
+    CTAs or fewer, each with a tile."""
     routes = []
     for m in range(1, 401):
         geo = _bwd_geometry(1_000_000, m, d, 132)
@@ -172,7 +206,7 @@ def test_bwd_route_and_grid_for_every_m(d):
                                       > 50 * 2 ** 20 // 4)
         else:
             assert geo.groups == 0, (m, d)
-            assert geo.smem_bytes == _bwd_wide_bytes(m, d)
+            assert (geo.rows, geo.smem_bytes) == (32, _bwd_wide_bytes(m, d))
             assert geo.n_tiles == 31_250
             tpc = geo.tiles_per_cta
             assert (geo.n_ctas - 1) * tpc < geo.n_tiles <= geo.n_ctas * tpc
@@ -186,8 +220,8 @@ def test_bwd_route_and_grid_for_every_m(d):
         for sms in (1, 114, 132):
             for m in (37, 300, 336):
                 geo = _bwd_geometry(n, m, d, sms)
-                rows = 64 if geo.groups else 32
-                assert geo.n_tiles == -(-n // rows)
+                assert geo.rows == (64 if geo.groups else 32)
+                assert geo.n_tiles == -(-n // geo.rows)
                 assert 1 <= geo.n_ctas <= min(sms, geo.n_tiles)
                 assert geo.n_parts == -(-geo.n_ctas // geo.share)
                 if geo.groups:
@@ -207,8 +241,9 @@ def test_bwd_shared_memory_at_the_bench_shape():
     Z^T (10,240 B), |z|^2 and u-bar (2,560 B), three row vectors and the
     warp sums (832 B): 223,552 bytes, one CTA per SM.  One hi/lo partial of
     the triangle a CTA would be 50 MB, so 4 CTAs take turns on each of 33
-    (12.5 MB).  m = 320 is the last tiled m, m = 336 the last the wide
-    route's three tiles fit for."""
+    (12.5 MB).  m = 320 is the last tiled m.  The wide route's two tiles
+    take 32 rows up to m = 776, 24 up to 1,032, 16 up to 1,520 and 8 up to
+    2,880 at d = 8; past that the wrapper refuses."""
     geo = _bwd_geometry(1_000_000, 300, 8, 132)
     assert (geo.groups, geo.smem_bytes, geo.n_ctas) == (5, 223_552, 132)
     assert (geo.nblk, geo.share, geo.n_parts) == (741, 4, 33)
@@ -217,10 +252,17 @@ def test_bwd_shared_memory_at_the_bench_shape():
             == 223_552)
     assert _bwd_geometry(1_000_000, 320, 8, 132)[:2] == (5, 227_648)
     wide = _bwd_geometry(1_000_000, 336, 8, 132)
-    assert (wide.groups, wide.smem_bytes) == (0, 230_080)
-    assert wide.smem_bytes <= SMEM_OPTIN
-    assert _bwd_geometry(1_000_000, 337, 8, 132).smem_bytes > SMEM_OPTIN
-    assert _bwd_geometry(1_000_000, 400, 8, 132).smem_bytes > SMEM_OPTIN
+    assert (wide.groups, wide.smem_bytes, wide.rows) == (0, 114_880, 32)
+    assert (4 * (2 * 32 * 336 + 3 * 16 * 128 + 2 * 336 + 32 * 8 + 128 + 16)
+            == 114_880)
+    for m, rows in ((337, 32), (400, 32), (776, 32), (777, 24), (1_000, 24),
+                    (1_032, 24), (1_033, 16), (1_520, 16), (1_521, 8),
+                    (2_880, 8)):
+        geo = _bwd_geometry(1_000_000, m, 8, 132)
+        assert (geo.groups, geo.rows) == (0, rows), m
+        assert geo.smem_bytes == _bwd_wide_bytes(m, 8, rows) <= SMEM_OPTIN
+        assert geo.n_tiles == -(-1_000_000 // rows)
+    assert _bwd_geometry(1_000_000, 2_881, 8, 132).smem_bytes > SMEM_OPTIN
 
 
 def test_bwd_triangle_partial_unpacks_to_upper_blocks():

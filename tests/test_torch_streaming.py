@@ -3,10 +3,13 @@
 Evidence, coefficients, de-whitened R, training means and blocked
 predictions through both packages in f64 on the CPU (the port's plain loop,
 the JAX custom-VJP scan) at rtol 1e-10; weights carried across by
-``gpr_tpu_torch.convert`` and by npz artifacts in both directions.
+``gpr_tpu_torch.convert`` and by npz artifacts in both directions; and the
+default route's choice between the CUDA kernels and the plain loop, from
+the kernels' geometry on a made-up device.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +22,7 @@ from gpr_tpu.kernels import SeIso as JSeIso
 from gpr_tpu.models import streaming as jst
 from gpr_tpu_torch.convert import from_jax_params, params_from_artifact
 from gpr_tpu_torch.io import checkpoint as tckpt
+from gpr_tpu_torch.kernels import SeIso
 from gpr_tpu_torch.models import streaming as tst
 
 F64 = torch.float64
@@ -204,6 +208,119 @@ def test_checkpoint_port_to_jax(rng, tmp_path):
     jart, _ = jckpt.load_model(path)
     for got, want in zip(_predict_port(tart, Xs), _predict_jax(jart, Xs)):
         _close(got, want)
-    bad = dataclasses.replace(tart, family_name="se_ard")
-    with pytest.raises(NotImplementedError, match="se_ard"):
+    bad = dataclasses.replace(tart, family_name="sum(se_iso,lin_ard)")
+    with pytest.raises(NotImplementedError, match=r"sum\(se_iso,lin_ard\)"):
         tckpt.save_model(str(tmp_path / "bad.npz"), bad)
+
+
+# -- the default route (ops.fused_stats.default_route): kernel #1, and #3
+# when a gradient will be taken, wherever they fit the device; a made-up
+# H100-like property object
+H100 = SimpleNamespace(multi_processor_count=132, L2_cache_size=50 * 2 ** 20,
+                       shared_memory_per_block_optin=232_448)
+#: the last m at which the shared memory of the backward kernel (with a
+#: gradient) and of the forward kernel (without) fits an H100, by d: the
+#: wide routes' 8-row tiles
+LAST_M = {8: (2_880, 5_983), 20: (2_872, 5_975), 27: (2_872, 5_967),
+          64: (2_856, 5_935)}
+
+
+@pytest.mark.parametrize("d", sorted(LAST_M))
+def test_default_route_domain(d):
+    """f32 takes the kernels exactly where the forward geometry fits and,
+    with a gradient, the backward's too: m = 400 and 1,000 at every d; f64
+    never; a device with less shared memory gets a smaller domain."""
+    from gpr_tpu_torch.ops import fused_stats as tops
+
+    for m in range(1, 6_401):
+        fwd = tops._geometry(1, m, d, 132).smem_bytes <= 232_448
+        bwd = tops._bwd_geometry(1, m, d, 132).smem_bytes <= 232_448
+        for grad, fits, last in ((True, fwd and bwd, LAST_M[d][0]),
+                                 (False, fwd, LAST_M[d][1])):
+            want = "fused_acc" if fits else "reference"
+            assert tops.default_route(m, d, torch.float32, H100,
+                                      grad=grad) == want, m
+            assert fits == (m <= last), (m, grad)
+        if m % 97 == 0:
+            assert tops.default_route(m, d, F64, H100) == "reference"
+    small = SimpleNamespace(**{**vars(H100),
+                               "shared_memory_per_block_optin": 101_376})
+    routes = [tops.default_route(m, d, torch.float32, small)
+              for m in range(1, 601)]
+    assert 0 < routes.count("fused_acc") < LAST_M[d][0]
+
+
+class _FakeCuda(SimpleNamespace):
+    """Stands in for an (n, d) CUDA tensor where only its metadata is
+    read."""
+
+    is_cuda = True
+    device = "cuda:0"
+
+
+@pytest.mark.parametrize("block_size", [1_000, 8_192], ids=["1000", "8192"])
+def test_resolve_impl_default_route(monkeypatch, block_size):
+    """With impl=None an SE-iso model on f32 CUDA tensors with a scalar
+    sigma2 takes the kernels where default_route does, whatever the block
+    (the kernels do not read it, and it is no input of the route): past
+    the backward kernel's domain only without a gradient; every other
+    case, and an explicit grad_impl='ad', takes the plain loop, and an
+    explicit kernel impl is returned as asked."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda _: H100)
+    kernel = SeIso(0.0, 0.0, device="cpu", dtype=F64)
+    X = _FakeCuda(shape=(block_size + 7, 8), dtype=torch.float32)
+    for m, want, serve in ((300, "fused_acc", "fused_acc"),
+                           (337, "fused_acc", "fused_acc"),
+                           (1_000, "fused_acc", "fused_acc"),
+                           (4_000, "reference", "fused_acc"),
+                           (7_000, "reference", "reference")):
+        z = torch.zeros(m, 8)
+        assert tst._resolve_impl(None, X, kernel, z=z) == want, m
+        assert tst._resolve_impl(None, X, kernel, z=z, grad=False) == serve
+        assert tst._resolve_impl(None, X, kernel, "ad", z=z) == "reference"
+        assert tst._resolve_impl(None, X, kernel, z=z,
+                                 per_row=True) == "reference"
+        assert tst._resolve_impl("fused_acc", X, kernel, z=z) == "fused_acc"
+    z = torch.zeros(300, 8)
+    X64 = _FakeCuda(shape=(block_size, 8), dtype=F64)
+    assert tst._resolve_impl(None, X64, kernel, z=z) == "reference"
+    from gpr_tpu_torch.kernels import Matern52
+
+    assert tst._resolve_impl(None, X, Matern52(device="cpu"),
+                             z=z) == "reference"
+    with pytest.raises(ValueError, match="per-row sigma2"):
+        tst._resolve_impl("fused_acc", X, kernel, z=z, per_row=True)
+
+
+def test_stream_stats_asks_for_the_backward_only_with_a_gradient(
+        rng, monkeypatch):
+    """stream_stats tells the route whether a gradient will be taken: under
+    grad mode when the kernel's hypers, z, sigma2, X or y require one, and
+    never under no_grad (the serving functions), so that serving needs only
+    the forward kernel to fit."""
+    asked = []
+    resolve = tst._resolve_impl
+
+    def spy(*args, **kw):
+        asked.append(kw["grad"])
+        return resolve(*args, **kw)
+
+    monkeypatch.setattr(tst, "_resolve_impl", spy)
+    X, y, Z = (torch.as_tensor(rng.standard_normal(s))
+               for s in ((64, 3), (64,), (5, 3)))
+
+    def stats(grad_of=(), hypers=True):
+        kernel = SeIso(0.1, -0.2, device="cpu", dtype=F64)
+        kernel.requires_grad_(hypers)
+        z = Z.clone().requires_grad_("z" in grad_of)
+        s2 = torch.tensor(0.3, dtype=F64, requires_grad="s2" in grad_of)
+        inducing = tst.calc_inducing(kernel, z, None)
+        return tst.stream_stats(kernel, inducing, s2, X, y, block_size=16)
+
+    stats()
+    with torch.no_grad():
+        stats(("z", "s2"))
+    stats(hypers=False)
+    stats(("s2",), hypers=False)
+    stats(("z",), hypers=False)
+    assert asked == [True, False, False, True, True]
