@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive gpr_tpu_torch's streaming serving and training paths, the
 README's Quick-start path, bench.py's flagship se_fat leg, the default
-streaming route, the base kernel families, per-row sigma2 and the
-command-line trainer/predictor, once on one NVIDIA GPU.
+streaming route, the base kernel families, the composite families (the
+combinators, the ICM task kernel, the spectral mixture), per-row sigma2 and
+the command-line trainer/predictor, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -138,13 +139,32 @@ Phases, each printed on its own line:
    (evidence and the hyper and sigma2 gradients within 1e-8; the z
    gradient printed).  Each: median of 5 value+grad times, peak memory,
    the SM clock and power draw.
-14. hetero -- SE-iso f32 value+grad with per-row sigma2 0.1 (1 + 0.5 u), u
+14. composites -- the composite families at bench's shape on the plain
+   loop (no kernel may launch; sigma2 0.1, jitter 1e-6): the ICM model
+   icm_family(se_iso, 8, 4, 2) of bench.py's ICM leg (its task ids drawn
+   after X, y, Z and the se_fat projection, for the rows and for Z; block
+   32,768, the FITC evidence), the trend sum(se_iso,lin_ard) (Z = X's
+   first 300 rows), sm2 initialized by sm_init_from_data from the first
+   100,000 rows, and sm2 from its default_params (the last three
+   variational, block 16,384; default_params draw from a generator on the
+   card seeded 0).  Each in f32 against its f64 twin on the card (evidence
+   2e-5, each gradient group 1e-3; a group whose twin gradient vanishes is
+   measured against the whole gradient's norm) but for what f32 cannot
+   resolve, which is printed and named in F32_NOT_HELD: trend's lin_ard
+   lengthscales (printed again through autograd) and sm_init's sm2 as a
+   whole; the ICM z gradient's task column exactly 0 in both.  Then each
+   in f64 on the card against the CPU over the first 100,000 rows
+   (evidence 1e-8, each group within max(1e-8, eps kappa), kappa the
+   condition number of K(Z, Z) + jitter I; sm_init's sm2's z gradient
+   printed, F64_NOT_HELD).  Each: the median of 5 f32
+   value+grad times, peak memory, the SM clock and power draw.
+15. hetero -- SE-iso f32 value+grad with per-row sigma2 0.1 (1 + 0.5 u), u
    ~ U(0, 1) from default_rng(1), every 100th row masked (10,000), through
    ``stream_stats`` (the plain loop under autograd, block 16,384) against
    its f64 twin (evidence 2e-5, each gradient group, the sigma2 vector's
    too, 1e-3; masked rows get no sigma2 gradient), no kernel launched;
    the median of 5 times and the peak memory.
-15. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
+16. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
    bench's draw (the first 200,000 rows of X with the fit phase's targets;
    rows 200,000-299,999 to test on), se_fat with -n-inducing 300 -dim-red 8
    -log-het-sked -5 -multiscale -inducing-init first -seed 0: (a) the host
@@ -156,7 +176,11 @@ Phases, each printed on its own line:
    printed, the library's predict_means on the loaded artifact; (d)
    -kernel matern52 -n-inducing 300 -inducing-init first -seed 0 with the
    device trainer at block 16,384, -max-iter 5, and -cmd test
-   -with-stddev of its artifact, checked as in (c).  Each
+   -with-stddev of its artifact, checked as in (c); (e) the same with
+   -kernel sm2 (its keyless init from the training rows' spectrum); (f)
+   -kernel se_iso -tasks 4 -coreg-rank 2 on the same rows with bench's
+   ICM task ids as a last input column (and on its test rows), whose
+   -verbose stderr must print a finite 4 x 4 B.  Each
    command's wall time, iterations and evaluations (the device trainer
    prints them), the log evidence (recomputed here in f64) and SMSE, which
    CSV parser ran, and the wall time of -cmd test on one row (what every
@@ -189,8 +213,15 @@ import torch
 
 from gpr_tpu_torch.convert import from_jax_params, params_from_artifact
 from gpr_tpu_torch.io import load_model, native
-from gpr_tpu_torch.kernels import FAMILIES, SeFat, SeIso
-from gpr_tpu_torch.kernels.base import hyper_leaves
+from gpr_tpu_torch.kernels import (
+    FAMILIES,
+    SeFat,
+    SeIso,
+    icm_family,
+    resolve_family,
+    sm_init_from_data,
+)
+from gpr_tpu_torch.kernels.base import hyper_fields, hyper_leaves, static_fields
 from gpr_tpu_torch.models import streaming
 from gpr_tpu_torch.models.fitc import calc_inducing
 from gpr_tpu_torch.numerics.linalg import inv_tri_upper
@@ -1690,7 +1721,7 @@ def family_value_and_grad(name, fields, X, y):
                                           grads)}
 
 
-def time_family(tag, fn, dev, card) -> None:
+def time_family(tag, fn, dev, card, block=FAMILY_BLOCK) -> None:
     """Median of 5 value+grad runs, the peak memory above what was
     allocated before, the SM clock and the power draw."""
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1703,7 +1734,7 @@ def time_family(tag, fn, dev, card) -> None:
     finally:
         samples = read_clock_log(sampler)
     peak = torch.cuda.max_memory_allocated(dev) - base
-    log(f"time {tag}: {ms:.3f} ms (median of 5, block {FAMILY_BLOCK}); peak "
+    log(f"time {tag}: {ms:.3f} ms (median of 5, block {block}); peak "
         f"memory {peak / 2**20:.1f} MiB above the data; "
         f"{clock_window(samples, t0, t1)} ({card})")
 
@@ -1786,6 +1817,216 @@ def families_phase(dev, card: str, data) -> None:
             family_value_and_grad(name, fields, X64, y64)), dev, card)
 
 
+# -- composites: the combinators, the ICM task kernel and the spectral
+# mixture on the plain loop (no combinator has a kernel or a hand pullback)
+ICM_TASKS, ICM_RANK, ICM_BLOCK = 4, 2, 32_768  # bench.py's ICM leg
+SM_INIT_ROWS = 100_000
+
+
+def bench_task_ids():
+    """bench.py's task ids for its ICM leg: the draws of its
+    ``default_rng(0)`` after X, y, Z and the se_fat projection, for the rows
+    and then for Z."""
+    rng = np.random.default_rng(0)
+    rng.standard_normal((N, D))
+    rng.standard_normal(N)
+    rng.standard_normal((M, D))
+    rng.standard_normal((D, D))
+    return (rng.integers(0, ICM_TASKS, N).astype(np.float32),
+            rng.integers(0, ICM_TASKS, M).astype(np.float32))
+
+
+def composite_models(dev, data):
+    """(tag, kernel class, f32 hyper fields, X, Z, block, variational) of
+    each composite model at bench's shape: the ICM leg of bench.py (its
+    task ids, block 32,768, the FITC evidence), the trend
+    sum(se_iso,lin_ard), the spectral mixture sm2 initialized from the
+    first 100,000 rows, and sm2 from its default_params (the last three
+    variational, block 16,384).  The draws of default_params come from a
+    generator on the card seeded 0."""
+    X32, y32, Z = data
+    tid_x, tid_z = (torch.as_tensor(t, device=dev)[:, None]
+                    for t in bench_task_ids())
+    X_icm = torch.cat([X32, tid_x], dim=1)
+    Z_icm = torch.cat([torch.as_tensor(Z, device=dev), tid_z], dim=1)
+    icm = icm_family(SeIso, D, ICM_TASKS, ICM_RANK)
+    trend = resolve_family("sum(se_iso,lin_ard)")
+    sm2 = sm_init_from_data(2, X32[:SM_INIT_ROWS], y32[:SM_INIT_ROWS])
+    models = []
+    for tag, kernel, X, z, block, variational in (
+            ("icm", icm.default_params(
+                X_icm, M, torch.Generator(dev).manual_seed(0)), X_icm,
+             Z_icm, ICM_BLOCK, False),
+            ("trend", trend.default_params(
+                X32, M, torch.Generator(dev).manual_seed(0)), X32, X32[:M],
+             FAMILY_BLOCK, True),
+            ("sm2", sm2, X32, X32[:M], FAMILY_BLOCK, True),
+            ("sm2-default", type(sm2).default_params(
+                X32, M, torch.Generator(dev).manual_seed(0)), X32, X32[:M],
+             FAMILY_BLOCK, True)):
+        fields = {**static_fields(kernel), **{
+            n: t.detach() for n, t in hyper_fields(kernel).items()}}
+        models.append((tag, type(kernel), fields, X, z, block, variational))
+    return models
+
+
+def composite_value_and_grad(cls, fields, X, y, z0, block, variational,
+                             grad_impl="custom"):
+    """The streaming evidence of the composite ``cls`` with ``fields`` in
+    X's dtype on X's device (sigma2 0.1, jitter 1e-6), and its gradient
+    groups by name: the dotted hyper leaves, z and sigma2."""
+    kernel = cls(**fields, device=X.device, dtype=X.dtype)
+    z = z0.to(X.device, X.dtype).clone().requires_grad_(True)
+    s2 = torch.tensor(SIGMA2, dtype=X.dtype, device=X.device,
+                      requires_grad=True)
+    ev = streaming.streaming_log_evidence(kernel, z, s2, X, y,
+                                          variational=variational,
+                                          jitter=JITTER, block_size=block,
+                                          grad_impl=grad_impl)
+    names, hypers = hyper_leaves(kernel)
+    grads = torch.autograd.grad(ev, (*hypers, z, s2))
+    return ev.item(), dict(zip((*names, "z", "sigma2"), grads))
+
+
+def group_errors(grads, want) -> dict:
+    """Each gradient group's error against ``want``: relative (2-norm), or,
+    where ``want``'s group vanishes (below 1e-10 of the whole gradient's
+    norm: the DC component's cosine mu at 0, by symmetry; a component too
+    narrow to reach any pair but its coincident ones), relative to the
+    whole gradient's norm."""
+    scale = float(torch.linalg.norm(torch.cat(
+        [w.double().reshape(-1) for w in want.values()])))
+    errs = {}
+    for name, g in grads.items():
+        w = want[name].to(g.device)
+        norm = float(torch.linalg.norm(w.double()))
+        errs[name] = (rel_norm(g, w) if norm > 1e-10 * scale
+                      else float(torch.linalg.norm(g.double() - w.double()))
+                      / scale)
+    return errs
+
+
+# What an f32 run cannot resolve, printed against the f64 twin and held
+# only in f64 (card against CPU).  trend: the lin_ard lengthscales, whose
+# gradient (small beside se_iso's) is the difference of the variational
+# term's large parts for a term the inducing points represent exactly; the
+# same f32 run through autograd is printed beside it.  sm2 as a whole
+# (None): sm_init_from_data on bench's 8-d rows gives its second component
+# a noise peak of the marginal periodograms near their Nyquist frequency
+# (mu of thousands of cycles a unit, lengthscales below 1e-3), where f32
+# loses the cosine's phase and the gemm form of sqdist the coincident
+# pairs.  sm2-default holds the same family in f32 at its default_params.
+F32_NOT_HELD = {"trend": ("terms.1.log_ells",), "sm2": None}
+# What the f64 card-vs-CPU check prints but does not hold: sm_init's sm2's
+# z gradient sums that component's terms of thousands of cycles a unit
+# with signs that cancel, so the order of summation moves it past 1e-8.
+F64_NOT_HELD = {"sm2": ("z",)}
+
+
+def composites_phase(dev, card: str, data) -> None:
+    """Each composite model in f32 against its f64 twin on the card (the
+    section 2 bounds: evidence 2e-5, each gradient group 1e-3, but for
+    F32_NOT_HELD), then in f64 on the card against the CPU over the first
+    100,000 rows (evidence 1e-8, each group within max(1e-8, eps kappa),
+    but for F64_NOT_HELD);
+    no kernel launched; the ICM z gradient's task column exactly 0; the
+    median of 5 value+grad times, the peak memory, the SM clock and the
+    power draw."""
+    _, y32, _ = data
+    t0 = time.perf_counter()
+    models = composite_models(dev, data)
+    log(f"composites: models built in {time.perf_counter() - t0:.2f} s "
+        f"(sm_init_from_data over {SM_INIT_ROWS} rows included)")
+    sm2 = next(fields for tag, _, fields, *_ in models if tag == "sm2")
+    log("composites sm2 init (sm_init_from_data): " + "; ".join(
+        f"component {j}: |mu| up to "
+        f"{float(sm2[f'terms.{j}.terms.1.mu'].abs().max()):.4g} cycles a "
+        f"unit, lengthscales down to "
+        f"{float(sm2[f'terms.{j}.terms.0.log_ells'].exp().min()):.4g}"
+        for j in range(2)))
+    for tag, cls, fields, X, z0, block, variational in models:
+        fields64 = {n: t.double() if torch.is_tensor(t) else t
+                    for n, t in fields.items()}
+        composite_checks(tag, (cls, fields, X, y32, z0, block, variational),
+                         (cls, fields64, X.double(), y32.double(),
+                          z0.double(), block, variational), dev, card)
+
+
+def composite_checks(tag, args, args64, dev, card) -> None:
+    """One composite model's checks and timing (see composites_phase);
+    ``args`` and ``args64`` are its f32 and f64 arguments of
+    ``composite_value_and_grad``."""
+    cls, fields64, X64, y64, z64, block, variational = args64
+    (ev, grads), launches = counted(
+        f"composites {tag}", lambda: composite_value_and_grad(*args), ())
+    check(f"composites {tag} launches", not any(launches.values()),
+          f"{cls.name} launched a kernel: {launches}")
+    ev64, grads64 = composite_value_and_grad(*args64)
+    rel = (ev - ev64) / abs(ev64)
+    not_held = F32_NOT_HELD.get(tag, ())
+    if not_held is None:
+        not_held = ("evidence", *grads)
+    if "evidence" not in not_held:
+        check(f"composites {tag} evidence", abs(rel) <= 2e-5,
+              f"rel {rel:.3e}")
+    errs = []
+    for name, err in group_errors(grads, grads64).items():
+        if name not in not_held:
+            check(f"composites {tag} grad {name}", err <= 1e-3 and bool(
+                torch.isfinite(grads[name]).all()), f"rel {err:.3e}")
+        errs.append(f"{name} {err:.2e}" + (
+            " (not held in f32)" if name in not_held
+            and "evidence" not in not_held else ""))
+    if tag == "icm":
+        nonzero = int((grads["z"][:, D] != 0).sum()
+                      + (grads64["z"][:, D] != 0).sum())
+        check("composites icm task column", nonzero == 0,
+              f"{nonzero} task-column z gradients are not 0")
+        errs.append("z task column exactly 0 (f32 and f64)")
+    held = ("not held in f32: f64 below" if "evidence" in not_held
+            else "held")
+    log(f"composites {tag} {cls.name} f32: evidence {ev:.3f} vs f64 twin "
+        f"{ev64:.3f} ({held}): evidence rel {rel:+.2e}; grads "
+        f"{', '.join(errs)}")
+    if tag == "trend":
+        _, grads_ad = composite_value_and_grad(*args, "ad")
+        log(f"composites {tag} f32 through autograd (grad_impl='ad'), for "
+            f"information, not held: grads " + ", ".join(
+                f"{n} {e:.2e}" for n, e in group_errors(
+                    grads_ad, grads64).items()))
+    # f64 on the card against the CPU over the first rows
+    n = LOW_RANK_ROWS
+    fields_cpu = {k: v.cpu() if torch.is_tensor(v) else v
+                  for k, v in fields64.items()}
+    gpu = composite_value_and_grad(cls, fields64, X64[:n], y64[:n], z64,
+                                   block, variational)
+    cpu = composite_value_and_grad(cls, fields_cpu, X64[:n].cpu(),
+                                   y64[:n].cpu(), z64.cpu(), block,
+                                   variational)
+    rel = (gpu[0] - cpu[0]) / abs(cpu[0])
+    check(f"composites {tag} card vs CPU evidence", abs(rel) <= 1e-8,
+          f"rel {rel:.3e}")
+    with torch.no_grad():
+        km = cls(**fields_cpu, device="cpu",
+                 dtype=torch.float64).k_upper(z64.cpu())
+        kappa = float(torch.linalg.cond(
+            km + JITTER * torch.eye(km.shape[0], dtype=km.dtype)))
+    tol = max(1e-8, EPS64 * kappa)
+    errs = group_errors(gpu[1], cpu[1])
+    not_held = F64_NOT_HELD.get(tag, ())
+    for name, err in errs.items():
+        if name not in not_held:
+            check(f"composites {tag} card vs CPU grad {name}", err <= tol,
+                  f"rel {err:.3e} > {tol:.2e}")
+    log(f"composites {tag} f64 on the card vs the CPU over {n} rows: "
+        f"evidence rel {rel:+.2e}; grads " + ", ".join(
+            f"{name} {err:.2e}" + (" (not held)" if name in not_held
+                                   else "") for name, err in errs.items())
+        + f" (bound {tol:.2e}: kappa of K(Z, Z) + jitter {kappa:.2e})")
+    time_family(f"composites {tag} value+grad f32",
+                lambda: composite_value_and_grad(*args), dev, card, block)
+
+
 # -- hetero: per-row sigma2 on the streaming path (autograd through the
 # plain loop)
 HETERO_MASKED = 10_000  # every 100th row
@@ -1848,6 +2089,9 @@ CLI_COMMON = ("-n-inducing", "300", "-dim-red", "8", "-log-het-sked", "-5",
 CLI_DEVICE = ("-trainer", "device", "-block-size", "16384")
 CLI_FAMILY = ("-kernel", "matern52", "-n-inducing", "300", "-inducing-init",
               "first", "-seed", "0", "-verbose")
+CLI_SM2 = ("-kernel", "sm2", *CLI_FAMILY[2:])
+CLI_ICM = ("-kernel", "se_iso", "-tasks", str(ICM_TASKS), "-coreg-rank",
+           str(ICM_RANK), *CLI_FAMILY[2:])
 
 
 def cli_run(tmp, tag, argv, stdin_path):
@@ -1903,41 +2147,55 @@ def cli_report(tag, secs, err, model, dev, Xtr, ytr, card) -> None:
     check(f"cli {tag}", np.isfinite(l) and bool(smse), "evidence or SMSE")
 
 
+def cli_coregionalization(err) -> np.ndarray:
+    """The B matrix that ``-tasks -verbose`` prints on stderr."""
+    text = err[err.index("coregionalization B"):err.index("inter-task")]
+    return np.array([[float(v) for v in line.split()]
+                     for line in text.splitlines()[1:]])
+
+
 def cli_phase(dev, card: str, data) -> None:
     X32, _, _ = data
     yf = bench_targets(dev, X32)
     Xtr = X32[:CLI_TRAIN].double()
     ytr = yf[:CLI_TRAIN].double()
     Xte = X32[CLI_TRAIN:CLI_TRAIN + CLI_TEST].cpu().numpy()
+    # bench's ICM rows: its task ids as a last input column
+    tid = bench_task_ids()[0]
+    Xtr_icm = torch.cat([Xtr, torch.as_tensor(
+        tid[:CLI_TRAIN], dtype=torch.float64, device=dev)[:, None]], dim=1)
+    Xte_icm = np.column_stack([Xte, tid[CLI_TRAIN:CLI_TRAIN + CLI_TEST]])
     t0 = time.perf_counter()
     parser = native.get_lib()
     with tempfile.TemporaryDirectory() as tmp:
         train_csv, test_csv = f"{tmp}/train.csv", f"{tmp}/test.csv"
-        np.savetxt(train_csv, np.column_stack(
-            [Xtr.cpu().numpy(), ytr.cpu().numpy()]), fmt="%.9g",
-            delimiter=",")
-        np.savetxt(test_csv, Xte, fmt="%.9g", delimiter=",")
+        icm_csv, icm_test_csv = f"{tmp}/train_icm.csv", f"{tmp}/test_icm.csv"
+        for path, cols in ((train_csv, [Xtr, ytr]), (test_csv, [Xte]),
+                           (icm_csv, [Xtr_icm, ytr]),
+                           (icm_test_csv, [Xte_icm])):
+            np.savetxt(path, np.column_stack([
+                c.cpu().numpy() if torch.is_tensor(c) else c for c in cols]),
+                fmt="%.9g", delimiter=",")
         which = f"native {Path(parser._name).name}" if parser else "python"
         log(f"cli data: {CLI_TRAIN} training rows and {CLI_TEST} test rows "
-            f"of bench's draw written in {time.perf_counter() - t0:.2f} s; "
-            f"csv parser: {which}")
+            f"of bench's draw, without and with its ICM task column, written "
+            f"in {time.perf_counter() - t0:.2f} s; csv parser: {which}")
 
-        def train(tag, *flags):
+        def train(tag, *flags, csv=train_csv, x=Xtr):
             model = f"{tmp}/{tag}.npz"
             common = () if "-kernel" in flags else CLI_COMMON
             secs, _, err = cli_run(tmp, tag, ("-cmd", "train", "-model",
-                                              model, *common, *flags),
-                                   train_csv)
-            cli_report(tag, secs, err, model, dev, Xtr, ytr, card)
-            return model
+                                              model, *common, *flags), csv)
+            cli_report(tag, secs, err, model, dev, x, ytr, card)
+            return model, err
 
-        host = train("host", "-max-iter", "5")
-        full = train("device", *CLI_DEVICE, "-max-iter", "5")
+        host, _ = train("host", "-max-iter", "5")
+        full, _ = train("device", *CLI_DEVICE, "-max-iter", "5")
         ckpt = f"{tmp}/device.ckpt.npz"
         train("device-part", *CLI_DEVICE, "-max-iter", "2", "-checkpoint",
               ckpt)
-        resumed = train("device-resumed", *CLI_DEVICE, "-max-iter", "5",
-                        "-checkpoint", ckpt, "-resume")
+        resumed, _ = train("device-resumed", *CLI_DEVICE, "-max-iter", "5",
+                           "-checkpoint", ckpt, "-resume")
         got, want = cli_hypers(resumed, dev), cli_hypers(full, dev)
         rel = rel_norm(got, want)
         same = ("bit-equal to" if torch.equal(got, want)
@@ -1955,15 +2213,28 @@ def cli_phase(dev, card: str, data) -> None:
         log(f"cli start-up: {secs:.2f} s wall for -cmd test on one row "
             f"({card})")
 
-        # a base family other than se_fat through the device trainer
-        matern = train("matern52", *CLI_FAMILY, *CLI_DEVICE, "-max-iter",
-                       "5")
+        # a base family other than se_fat, the spectral mixture (its
+        # keyless init from the data's spectrum) and the ICM model through
+        # the device trainer
+        matern, _ = train("matern52", *CLI_FAMILY, *CLI_DEVICE, "-max-iter",
+                          "5")
+        sm2, _ = train("sm2", *CLI_SM2, *CLI_DEVICE, "-max-iter", "5")
+        icm, err = train("icm", *CLI_ICM, *CLI_DEVICE, "-max-iter", "5",
+                         csv=icm_csv, x=Xtr_icm)
+        B = cli_coregionalization(err)
+        log(f"cli icm coregionalization B: "
+            f"{np.array2string(B, precision=4, separator=', ')} ({card})")
+        check("cli icm B", B.shape == (ICM_TASKS, ICM_TASKS)
+              and bool(np.isfinite(B).all()), f"B of shape {B.shape}")
 
-        xs_raw = torch.as_tensor(native.load_csv_file(test_csv), device=dev)
-        for tag, model in (("host", host), ("device-resumed", resumed),
-                           ("matern52", matern)):
+        for tag, model, csv in (("host", host, test_csv),
+                                ("device-resumed", resumed, test_csv),
+                                ("matern52", matern, test_csv),
+                                ("sm2", sm2, test_csv),
+                                ("icm", icm, icm_test_csv)):
+            xs_raw = torch.as_tensor(native.load_csv_file(csv), device=dev)
             secs, out, _ = cli_run(tmp, f"test-{tag}", (
-                "-cmd", "test", "-model", model, "-with-stddev"), test_csv)
+                "-cmd", "test", "-model", model, "-with-stddev"), csv)
             lines = Path(out).read_text().splitlines()
             vals = np.array([[float(v) for v in line.split(",")]
                              for line in lines])
@@ -2003,6 +2274,7 @@ def main() -> int:
     flagship_phase(dev, card, data)
     route_phase(dev, card, data)
     families_phase(dev, card, data)
+    composites_phase(dev, card, data)
     hetero_phase(dev, card, data)
     cli_phase(dev, card, data)
     print(json.dumps({"kernels": rows}))

@@ -4,8 +4,12 @@ The counterpart of ``gpr_tpu/cli.py`` in PyTorch: the same flags, the same
 CSV-over-stdin protocol and the same text on stdout and stderr, for the
 regression path.  Training is the variational FIC with the se_fat kernel
 by default (bin/ocaml_gpr.ml:176-177; ``-kernel NAME`` takes any other base
-family, with its default hyper init and ``-amplitude`` on its signal
-variance where it has one): target centering and the reference's per-dimension input
+family or a structural name such as ``sum(se_iso,lin_ard)``, with its
+default hyper init and ``-amplitude`` on its signal variance where it has a
+top-level one; ``-kernel smQ`` is the Q-component spectral mixture
+initialized from the data's spectrum; ``-tasks T -coreg-rank R`` the ICM
+multi-output model over a trailing task-id column, whose learned B
+``-verbose`` prints): target centering and the reference's per-dimension input
 standardization (:249-269), L-BFGS evidence maximization with 1 Hz
 throttled verbose reports and a SIGINT-safe best-model bailout (:301-349),
 the host trainer or ``-trainer device`` (with ``-restarts``, ``-polish``,
@@ -23,10 +27,10 @@ projection, bit-equal to the JAX package's) and from a
 rows) or with the integer that seeds the JAX package's key (cosine's
 default frequencies): these draws differ from the JAX package's.
 
-Flags of modules that are not ported yet (``-tasks``, ``-exact``, ``-cg``,
-``-pitc-block``, ``-warp``, the likelihood flags, ``-trainer sharded``,
-``-devices``, the combinator families and ``-kernel smQ``) pass the JAX
-package's flag checks in its order, then exit naming their ROADMAP.md item.
+Flags of modules that are not ported yet (``-exact``, ``-cg``,
+``-pitc-block``, ``-warp``, the likelihood flags, ``-trainer sharded`` and
+``-devices``) pass the JAX package's flag checks in its order, then exit
+naming their ROADMAP.md item.
 
 Run: ``python3 -m gpr_tpu_torch.cli -cmd train -model m.npz < train.csv``,
 then ``python3 -m gpr_tpu_torch.cli -cmd test -model m.npz < test.csv``.
@@ -47,7 +51,6 @@ import torch
 F64 = torch.float64
 #: the ROADMAP.md queue 1 item that ports each flag's module
 _NOT_PORTED = (
-    ("tasks", "-tasks", 8),
     ("cg", "-cg", 10),
     ("exact", "-exact", 9),
     ("pitc_block", "-pitc-block", 9),
@@ -303,14 +306,12 @@ def _sm_q(kernel: str) -> int | None:
 def _family(args):
     """The selected kernel family (CLI -kernel; default se_fat, the
     reference CLI's hardwired choice, bin/ocaml_gpr.ml:176-177)."""
-    from .kernels import resolve_family
+    from .kernels import resolve_family, sm_family
 
-    if _sm_q(args.kernel) is not None:
-        raise _not_ported(f"-kernel {args.kernel}", 8)
-    try:
-        return resolve_family(args.kernel)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+    q = _sm_q(args.kernel)
+    if q is not None:
+        return sm_family(q)
+    return resolve_family(args.kernel)
 
 
 def _device() -> torch.device:
@@ -533,6 +534,11 @@ def cmd_train(args, dev) -> int:
     inputs, targets = data[:, :-1], data[:, -1]
     n, big_dim = inputs.shape
     _check_flags(args, n, big_dim, inputs)
+    if args.tasks is not None:
+        from .kernels import icm_family
+
+        fam = icm_family(fam, big_dim - 1, args.tasks, args.coreg_rank)
+        args.kernel = fam.name
 
     target_mean = float(targets.mean())
     targets = targets - target_mean
@@ -545,6 +551,11 @@ def cmd_train(args, dev) -> int:
     # (bin/ocaml_gpr.ml:262)
     input_stddevs = np.sqrt(((inputs - input_means) ** 2).sum(axis=0))
     input_stddevs = np.where(input_stddevs == 0.0, 1.0, input_stddevs)
+    if args.tasks is not None:
+        # task ids are categorical: identity transform, stored as such so
+        # that -cmd test leaves the ids intact
+        input_means[-1] = 0.0
+        input_stddevs[-1] = 1.0
     inputs = (inputs - input_means) / input_stddevs
 
     n_inducing = min(args.n_inducing, n)
@@ -600,7 +611,20 @@ def cmd_train(args, dev) -> int:
                 f"{fam.name} has none"
             )
 
+        sm_q = _sm_q(args.kernel)
+
         def build_params(rng):
+            if sm_q is not None:
+                # -kernel smQ: empirical-spectrum init, the top peaks for
+                # one restart, power-weighted draws seeded from rng for more
+                from .kernels import sm_init_from_data
+
+                return sm_init_from_data(
+                    sm_q, inputs, targets,
+                    key=None if args.restarts == 1
+                    else int(rng.integers(2**31)),
+                    device=dev, dtype=F64,
+                )
             # the JAX package seeds its key with this draw
             gen = torch.Generator(dev).manual_seed(int(rng.integers(2**31)))
             p = fam.default_params(X, n_inducing, gen)
@@ -758,10 +782,28 @@ def _choose_inducing(args, seed, params, X, n_inducing):
     return choose_n_random_inputs(generator, params, X, n_inducing)
 
 
+def _report_coregionalization(args, kernel):
+    """-tasks -verbose: print the learned task covariance B and the
+    inter-task correlations (``kernels/task.py`` ``coregionalization``)."""
+    if args.tasks is None or not args.verbose:
+        return
+    with torch.no_grad():
+        B = kernel.terms[0].terms[0].coregionalization().cpu().numpy()
+    d = np.sqrt(np.maximum(np.diag(B), 1e-30))
+    C = B / np.outer(d, d)
+    print("coregionalization B (task covariances):", file=sys.stderr)
+    for row in B:
+        print("  " + " ".join(f"{v:9.4f}" for v in row), file=sys.stderr)
+    print("inter-task correlations:", file=sys.stderr)
+    for row in C:
+        print("  " + " ".join(f"{v:6.3f}" for v in row), file=sys.stderr)
+
+
 def _write_artifact(args, fam, trained, target_mean, input_means,
                     input_stddevs):
     from .io.checkpoint import artifact_from_trained, save_model
 
+    _report_coregionalization(args, trained.kernel_params)
     save_model(args.model, artifact_from_trained(
         fam, trained, target_mean=target_mean, input_means=input_means,
         input_stddevs=input_stddevs, kernel_params=trained.kernel_params,

@@ -2,7 +2,10 @@
 
 Both entries return ``(kernel module, z, sigma2)`` on an explicit device and
 dtype, ready for the streaming functions of ``gpr_tpu_torch.models``.
-Every base family is ported (``kernels.FAMILIES``).
+Every family of the JAX package is ported: the base families
+(``kernels.FAMILIES``) and every structural name (``sum(...)``,
+``prod(...)``, ``cols(...)``, ``task(T,R)``), whose fields have dotted
+names (``terms.0.log_ell``), as in an artifact.
 """
 
 from __future__ import annotations
@@ -16,14 +19,30 @@ from .io.checkpoint import ModelArtifact
 from .kernels import resolve_family
 
 
+def _dotted(params: Mapping, prefix: str = "") -> dict:
+    """A combinator's nested fields (``{"terms": (term, ...)}``, each term a
+    mapping) as dotted names; plain names stay as they are."""
+    out = {}
+    for name, v in params.items():
+        if name == "terms" and isinstance(v, (list, tuple)):
+            for i, term in enumerate(v):
+                out.update(_dotted(term, f"{prefix}terms.{i}."))
+        else:
+            out[prefix + name] = v
+    return out
+
+
 def from_jax_params(params: Mapping, z, sigma2, *, device, dtype,
                     family="se_iso"):
     """``params`` maps field names of the JAX family's ``Params`` to arrays
     (se_iso: ``{"log_ell": ..., "log_sf2": ...}``), static fields to their
     values (se_fat's ``d``) and an option that is off to None or nothing;
-    ``family`` is the family's name or kernel class; ``z`` is the (m, dz)
-    inducing representation and ``sigma2`` the noise variance."""
+    a combinator's fields go by their dotted names (``terms.0.log_ell``) or
+    nested, as ``{"terms": ({"log_ell": ...}, ...)}``.  ``family`` is the
+    family's name or kernel class; ``z`` is the (m, dz) inducing
+    representation and ``sigma2`` the noise variance."""
     cls = resolve_family(family) if isinstance(family, str) else family
+    params = _dotted(params)
     names = set(params)
     fields = set(cls.param_names) | set(cls.static_names)
     required = fields - set(cls.optional_names)

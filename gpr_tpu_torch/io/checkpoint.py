@@ -6,7 +6,9 @@ the other: a flat npz with a json manifest, every leaf a named numpy array.
 A kernel's parameters are a dict by field name: its arrays go to
 ``param__<name>``, its static fields (se_fat's ``d``) and the options that
 are off (None) to the manifest's ``params_static``, as the JAX package's
-``_params_to_arrays`` writes them.  ``artifact_from_trained`` takes tensors
+``_params_to_arrays`` writes them.  A combinator's fields have the dotted
+names that JAX's nested params flatten to (``terms.0.log_ell``,
+``terms.1.terms.0.W``, ``terms.0.d`` for an se_fat term).  ``artifact_from_trained`` takes tensors
 to the host; ``gpr_tpu_torch.convert.params_from_artifact`` turns an
 artifact back into tensors.
 """

@@ -48,20 +48,42 @@ def view_of(cls, **fields):
     return self
 
 
+def declared_names(cls) -> tuple[str, ...]:
+    """A family's hyper fields in the declaration order of the JAX
+    ``Params`` dataclass: the order of its leaves inside a combinator's
+    packed vector, where JAX's ravel flattens each term's dataclass field
+    by field.  It differs from the sorted ``param_names`` for rq, periodic
+    and se_fat, which say so in ``declared_names``."""
+    return getattr(cls, "declared_names", cls.param_names)
+
+
+def field_of(kernel, path: str):
+    """The field ``path`` of ``kernel``: a plain name, or a dotted one
+    (``terms.0.log_ell``) that walks a combinator's terms."""
+    value = kernel
+    for part in path.split("."):
+        value = value[int(part)] if part.isdigit() else getattr(value, part)
+    return value
+
+
 def hyper_fields(kernel) -> dict:
-    """The kernel's hyper fields by name, in the sorted order of the JAX
-    ``Params`` keys: a tensor each, or None where an option is off."""
-    return {name: getattr(kernel, name) for name in type(kernel).param_names}
+    """The kernel's hyper fields by name in ``param_names`` order, a tensor
+    each or None where an option is off: for a base family the sorted order
+    of the JAX ``Params`` keys, for a combinator the dotted names of its
+    terms' fields in the order of JAX's ravel (``combinators``)."""
+    return {name: field_of(kernel, name) for name in type(kernel).param_names}
 
 
 def static_fields(kernel) -> dict:
-    """The kernel's static (non-tensor) fields by name, e.g. se_fat's ``d``."""
-    return {name: getattr(kernel, name) for name in type(kernel).static_names}
+    """The kernel's static (non-tensor) fields by name, e.g. se_fat's ``d``
+    (``terms.0.d`` for an se_fat term)."""
+    return {name: field_of(kernel, name)
+            for name in type(kernel).static_names}
 
 
 def hyper_leaves(kernel) -> tuple[tuple[str, ...], tuple[torch.Tensor, ...]]:
-    """(names, tensors) of the fields that are not None, in sorted order:
-    the positional layout of the streaming VJP's hyper arguments and
+    """(names, tensors) of the fields that are not None, in ``param_names``
+    order: the positional layout of the streaming VJP's hyper arguments and
     accumulators, and of a packed vector's kernel slice."""
     items = [(n, t) for n, t in hyper_fields(kernel).items() if t is not None]
     return tuple(n for n, _ in items), tuple(t for _, t in items)
@@ -73,6 +95,58 @@ def kernel_with(kernel, values: dict):
     as they are."""
     fields = {**hyper_fields(kernel), **values}
     return type(kernel).of(**static_fields(kernel), **fields)
+
+
+def cross_inputs(kernel, X1, X2) -> torch.Tensor:
+    """Data-side cross-covariance block K(X1, X2) among inputs: the
+    family's ``k_cross_inputs`` where it has one (se_fat, the combinators),
+    else ``k_cross`` against ``inducing_from_inputs(X2)``."""
+    hook = getattr(kernel, "k_cross_inputs", None)
+    if hook is not None:
+        return hook(X1, X2)
+    return kernel.k_cross(X1, kernel.inducing_from_inputs(X2))
+
+
+def k_upper_cols(kernel, z, j0: int, m_t: int) -> torch.Tensor:
+    """Columns [j0, j0 + m_t) of ``kernel.k_upper(z)`` without forming the
+    (m, m) Gram (the JAX package's ``k_upper_cols``): the combinators and
+    the task family compose their own, the base families go by name."""
+    own = getattr(kernel, "k_upper_cols", None)
+    if own is not None:
+        return own(z, j0, m_t)
+    z_c = z[j0:j0 + m_t]
+    on_diag = (torch.arange(z.shape[0], device=z.device)[:, None]
+               == j0 + torch.arange(m_t, device=z.device)[None, :])
+    name = kernel.name
+    if name == "const":
+        return kernel.k_cross(z[:, :0], z_c)
+    if name == "lin_ard":
+        # k_upper is the plain Gram of the pre-scaled inducing points
+        return matmul(z, z_c.T)
+    if name in ("lin_one", "cosine"):
+        return kernel.k_cross(z, z_c)
+    if name in ("se_iso", "se_ard", "matern32", "matern52", "rq",
+                "periodic"):
+        return torch.where(on_diag, torch.exp(kernel.log_sf2),
+                           kernel.k_cross(z, z_c))
+    if name == "se_fat":
+        log_sf2 = kernel.log_sf2
+        if kernel.log_multiscales_m05 is None:
+            k = torch.exp(log_sf2 - 0.5 * sqdist(z, z_c))
+            k = torch.where(on_diag, torch.exp(log_sf2), k)
+        else:
+            u = torch.exp(kernel.log_multiscales_m05) + 0.5
+            scale = u[:, None, :] + u[j0:j0 + m_t][None, :, :] - 1.0
+            diff = z[:, None, :] - z_c[None, :, :]
+            quad = torch.sum(torch.square(diff) / scale + torch.log(scale),
+                             dim=-1)
+            k = torch.exp(log_sf2 - 0.5 * quad)
+        if kernel.log_hetero_skedasticity is not None:
+            het_c = torch.exp(kernel.log_hetero_skedasticity)[j0:j0 + m_t]
+            k = k + torch.where(on_diag, het_c[None, :],
+                                torch.zeros_like(k))
+        return k
+    raise NotImplementedError(f"k_upper_cols for family {name!r}")
 
 
 def sqdist_cotangent_reduce(c: torch.Tensor, X: torch.Tensor,

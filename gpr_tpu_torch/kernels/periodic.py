@@ -26,6 +26,8 @@ class Periodic(nn.Module):
     name = "periodic"
     #: hyper fields in the order of the JAX ``Params`` pytree's sorted keys
     param_names = ("log_ell", "log_period", "log_sf2")
+    #: the JAX ``Params`` declaration order (``base.declared_names``)
+    declared_names = ("log_ell", "log_sf2", "log_period")
     static_names = ()
     optional_names = ()
     learn_inducing_default = True

@@ -20,6 +20,8 @@ class RatQuad(nn.Module):
     name = "rq"
     #: hyper fields in the order of the JAX ``Params`` pytree's sorted keys
     param_names = ("log_alpha", "log_ell", "log_sf2")
+    #: the JAX ``Params`` declaration order (``base.declared_names``)
+    declared_names = ("log_ell", "log_sf2", "log_alpha")
     static_names = ()
     optional_names = ()
     learn_inducing_default = True

@@ -44,6 +44,9 @@ class SeFat(nn.Module):
     #: hyper fields in the order of the JAX ``Params`` pytree's sorted keys
     param_names = ("log_hetero_skedasticity", "log_multiscales_m05",
                    "log_sf2", "tproj")
+    #: the JAX ``Params`` declaration order (``base.declared_names``)
+    declared_names = ("log_sf2", "tproj", "log_hetero_skedasticity",
+                      "log_multiscales_m05")
     static_names = ("d",)
     #: the hyper fields that may be None (option off)
     optional_names = _OPTIONS

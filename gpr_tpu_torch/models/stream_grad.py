@@ -12,10 +12,13 @@ It saves only its inputs: every Knm tile is recomputed in the backward, so
 nothing n x m is ever stored.
 
 The kernel's hypers go in positionally, the fields that are not None in
-sorted name order (``kernels.base.hyper_leaves``), and the gradient
-accumulators are positional over them, as in the JAX package.  Each tile's
-kernel pullback is the family's ``k_cross_vjp`` where it has one, else
-autograd's (``torch.func.vjp`` of ``k_cross`` and ``k_diag``).
+``param_names`` order (``kernels.base.hyper_leaves``; a combinator's are
+the dotted leaves of its terms), and the gradient accumulators are
+positional over them, as in the JAX package.  Each tile's kernel pullback
+is the family's ``k_cross_vjp`` where it has one, else autograd's
+(``torch.func.vjp`` of ``k_cross`` and ``k_diag``): the combinators and
+the task family have none, as in the JAX package, where ``jax.vjp`` pulls
+their tiles back.
 
 The backward is the JAX package's ``bwd_variant="ug"`` schedule: the Gram
 cotangent is symmetrized once, UG = U^-1 (G-bar + G-bar') is formed once,
@@ -125,8 +128,8 @@ def _backward_scan(kernel, z, u_inv, sigma2, xb, yb, maskb, cot, acc_dtype,
                    need_y=True):
     """Pull the statistic cotangents ``cot`` = (G-bar, u-bar, lds-bar,
     yiy-bar, isr-bar) back through the blocked rows: the cotangents of the
-    kernel's hyper fields that are not None (sorted order; for SE-iso
-    log_ell_bar, log_sf2_bar), then z_bar, u_inv_bar and sigma2_bar, in
+    kernel's hyper fields that are not None (``param_names`` order; for
+    SE-iso log_ell_bar, log_sf2_bar), then z_bar, u_inv_bar and sigma2_bar, in
     ``acc_dtype``, and the (nb, B) y cotangent (None unless ``need_y``).
 
     The gradient carries are compensated (hi, lo) pairs when the
@@ -210,7 +213,7 @@ class StreamStatsFn(torch.autograd.Function):
     ``kernel`` (whose static fields and None options the view keeps),
     ``block_size`` and ``impl`` ("fused_acc", "fused" or "reference") ride
     along as non-tensor arguments; ``hypers`` are the kernel's fields that
-    are not None, in sorted order (``kernels.base.hyper_leaves``).  The
+    are not None, in ``param_names`` order (``kernels.base.hyper_leaves``).  The
     kernel impls are SE-iso's and need CUDA tensors; the backward of either
     runs the backward kernel.  The X and mask cotangents are structural
     zeros (None); the y cotangent is exact.

@@ -20,7 +20,8 @@ With ``impl=None`` an SE-iso kernel on f32 CUDA tensors with a scalar
 sigma2 takes ``"fused_acc"`` (``ops.fused_stats.default_route``): the
 forward kernel where it fits the device (m up to about 5,980 at any d on an
 H100), and, when a gradient will be taken, the backward kernel too (m up to
-about 2,870).  Everything else takes the plain loop: the other families,
+about 2,870).  Everything else takes the plain loop: the other families
+(the combinators, ``sum(se_iso,...)`` included: the test goes by name),
 CPU tensors, f64 on the card, per-row sigma2, and an (m, d) past those
 limits.  The two kernel impls compute the SE-iso kernel with a scalar
 sigma2 only: asked for otherwise they raise, as the JAX package's Pallas

@@ -3,12 +3,15 @@ optimization vector.  The counterpart of ``gpr_tpu/optim/pack.py``.
 
 The vector layout is the JAX package's, so a packed vector means the same
 thing in both: coordinate 0 is log(sigma2) when ``learn_sigma2``, then the
-selected kernel hypers in sorted field order (``ravel_pytree`` sorts dict
-keys: for SE-iso ``log_ell``, ``log_sf2``; for se_fat
+selected kernel hypers in the kernel class's ``param_names`` order, then
+the inducing coordinates row-major when ``learn_inducing``.  That order is
+JAX's ravel: sorted field names for a base family (``ravel_pytree`` sorts
+dict keys: for SE-iso ``log_ell``, ``log_sf2``; for se_fat
 ``log_hetero_skedasticity``, ``log_multiscales_m05``, ``log_sf2``,
-``tproj``), then the inducing coordinates row-major when
-``learn_inducing``.  Static fields (se_fat's ``d``) and options that are
-off (None) are not in the vector.
+``tproj``), and for a combinator its terms in order, each term's fields in
+their ``Params`` declaration order (``kernels/combinators.py``).  Static
+fields (se_fat's ``d``) and options that are off (None) are not in the
+vector.
 """
 
 from __future__ import annotations
@@ -37,8 +40,9 @@ def make_pack(kernel, z0, sigma2_0, *, learn_sigma2: bool = True,
               fixed: Sequence[str] = ()) -> HyperPack:
     """Build the pack for (kernel's hypers, z0, sigma2_0).
 
-    ``learn_inducing`` defaults per kernel class; ``fixed`` names hyper
-    fields to hold at the kernel's values.  ``unpack(x)`` returns a kernel
+    ``learn_inducing`` defaults per kernel class; ``fixed`` names top-level
+    hyper fields to hold at the kernel's values, as in the JAX package: for
+    a combinator that is ``terms``, all of its hypers.  ``unpack(x)`` returns a kernel
     view (``type(kernel).of``) whose hypers are slices of ``x``, so
     autograd reaches ``x`` through every field; ``d`` and the fields that
     are None stay as they were.
@@ -47,13 +51,14 @@ def make_pack(kernel, z0, sigma2_0, *, learn_sigma2: bool = True,
     if learn_inducing is None:
         learn_inducing = cls.learn_inducing_default
     fixed = set(fixed)
-    unknown = fixed - set(cls.param_names)
+    top = {name: name.split(".", 1)[0] for name in cls.param_names}
+    unknown = fixed - set(top.values())
     if unknown:
         raise ValueError(f"unknown hyper fields {sorted(unknown)}; "
-                         f"{cls.name} has {list(cls.param_names)}")
+                         f"{cls.name} has {sorted(set(top.values()))}")
     values0 = {name: t.detach() for name, t in hyper_fields(kernel).items()
                if t is not None}
-    free = sorted(set(values0) - fixed)
+    free = [name for name in values0 if top[name] not in fixed]
     pieces = [values0[name].reshape(-1) for name in free]
     if learn_inducing:
         pieces.append(z0.detach().reshape(-1))

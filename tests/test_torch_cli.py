@@ -14,7 +14,6 @@ package's, and one real process runs ``python -m gpr_tpu_torch.cli``.
 """
 
 import contextlib
-import dataclasses
 import io
 import os
 import subprocess
@@ -51,6 +50,9 @@ CASES = {
     "matern52-device": ["-kernel", "matern52", "-n-inducing", "6",
                         "-trainer", "device", "-block-size", "64"],
     "lin_ard": ["-kernel", "lin_ard", "-n-inducing", "2"],
+    "sum(se_iso,lin_ard)": ["-kernel", "sum(se_iso,lin_ard)",
+                            "-n-inducing", "6"],
+    "sm2-restarts": ["-kernel", "sm2", "-n-inducing", "6", "-restarts", "2"],
 }
 
 
@@ -120,10 +122,11 @@ def _assert_same_artifact(got, want, rtol=1e-8):
     a, _ = jckpt.load_model(str(got))
     b, _ = jckpt.load_model(str(want))
     assert a.family_name == b.family_name
-    pairs = {name: (getattr(a.kernel_params, name),
-                    getattr(b.kernel_params, name))
-             for name in (f.name for f in dataclasses.fields(
-                 a.kernel_params))}
+    # by field name; a combinator's by the dotted names of its terms'
+    fields = [{**arrays, **static} for arrays, static in (
+        jckpt._params_to_arrays(art.kernel_params) for art in (a, b))]
+    assert list(fields[0]) == list(fields[1])
+    pairs = {name: (fields[0][name], fields[1][name]) for name in fields[0]}
     pairs.update({f: (getattr(a, f), getattr(b, f))
                   for f in ("inducing", "coeffs", "chol_km", "r_mat",
                             "sigma2", "target_mean", "input_means",
@@ -178,6 +181,59 @@ def test_cosine_matches_jax_from_its_draw(data, tmp_path, monkeypatch):
     assert (_train("torch", tmp_path / "torch.npz", flags, csv)
             == _train("jax", tmp_path / "jax.npz", flags, csv))
     _assert_same_artifact(tmp_path / "torch.npz", tmp_path / "jax.npz")
+    cmd = ["-cmd", "test", "-model", str(tmp_path / "torch.npz"),
+           "-with-stddev"]
+    assert run("torch", cmd, test_csv) == run("jax", cmd, test_csv)
+
+
+def test_tasks_match_jax_from_its_draw(tmp_path, monkeypatch):
+    """-tasks 2 -coreg-rank 1 -verbose on rows [x0, x1, task id]: the ICM
+    model's task factor W is a random draw, from a torch Generator in the
+    port and a JAX key in the JAX package, seeded with the same integer;
+    with JAX's draw carried across, the two CLIs train the same artifact
+    (1e-8 relative), print the same B and correlations, and serve the same
+    text."""
+    import jax
+    import jax.numpy as jnp
+
+    import gpr_tpu.kernels as jk
+    from gpr_tpu_torch import kernels as tk
+    from gpr_tpu_torch.convert import from_jax_params
+
+    icm = tk.icm_family(tk.SeIso, 2, 2, 1)
+
+    def jax_draw(cls, X, n_inducing, generator=None):
+        jp = jk.icm_family(jk.SeIso, 2, 2, 1).default_params(
+            jnp.asarray(X.cpu().numpy()), n_inducing,
+            jax.random.PRNGKey(generator.initial_seed()))
+        arrays, static = jckpt._params_to_arrays(jp)
+        return from_jax_params({**arrays, **static}, np.zeros((1, 3)), 1.0,
+                               device=X.device, dtype=X.dtype,
+                               family=cls)[0]
+
+    monkeypatch.setattr(icm, "default_params", classmethod(jax_draw))
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((120, 2))
+    task = np.arange(120) % 2
+    y = np.sin(2.0 * X[:, 0]) * (1.0 + task) + 0.1 * rng.standard_normal(120)
+    csv = _csv(np.column_stack([X, task]), y)
+    test_csv = _csv(np.column_stack([rng.standard_normal((25, 2)),
+                                     np.arange(25) % 2]))
+    flags = ["-kernel", "se_iso", "-tasks", "2", "-coreg-rank", "1",
+             "-n-inducing", "6", "-verbose"] + BASE
+
+    def coregionalization(err):
+        return err[err.index("coregionalization B"):]
+
+    tout, terr = _train("torch", tmp_path / "torch.npz", flags, csv)
+    jout, jerr = _train("jax", tmp_path / "jax.npz", flags, csv)
+    assert tout == jout == ""
+    assert coregionalization(terr) == coregionalization(jerr)
+    assert len(coregionalization(terr).splitlines()) == 6  # 2 x 2 B and C
+    _assert_same_artifact(tmp_path / "torch.npz", tmp_path / "jax.npz")
+    art, _ = jckpt.load_model(str(tmp_path / "torch.npz"))
+    assert art.family_name == icm.name
+    assert (art.input_means[-1], art.input_stddevs[-1]) == (0.0, 1.0)
     cmd = ["-cmd", "test", "-model", str(tmp_path / "torch.npz"),
            "-with-stddev"]
     assert run("torch", cmd, test_csv) == run("jax", cmd, test_csv)
@@ -263,6 +319,15 @@ BAD = {
     "amplitude on lin_one": (["-kernel", "lin_one", "-amplitude", "2"],
                              None),
     "amplitude on const": (["-kernel", "const", "-amplitude", "2"], None),
+    "amplitude on a sum": (["-kernel", "sum(se_iso,lin_ard)", "-amplitude",
+                            "2"], None),
+    "amplitude on sm2": (["-kernel", "sm2", "-amplitude", "2"], None),
+    "tasks below two": (["-tasks", "1"], None),
+    "coreg rank above tasks": (["-tasks", "2", "-coreg-rank", "3"], None),
+    "tasks without integer ids": (["-tasks", "2"], None),
+    "tasks with kmeans": (["-tasks", "2", "-inducing-init", "kmeans"],
+                          "".join(f"{i * 0.1:.1f},{i % 2},{i * 0.2:.1f}\n"
+                                  for i in range(20))),
     "one column": ([], "1.0\n2.0\n"),
     "ragged rows": ([], "1.0,2.0\n1.0\n"),
     "not a number": ([], "1.0,2.0\n1.0,x\n"),
@@ -290,7 +355,6 @@ def test_test_messages(data, tmp_path):
 
 
 NOT_PORTED = {
-    "-tasks": (["-tasks", "2"], 8),
     "-exact": (["-exact"], 9),
     "-cg": (["-exact", "-cg"], 10),
     "-pitc-block": (["-pitc-block", "8", "-trainer", "device"], 9),
@@ -303,8 +367,6 @@ NOT_PORTED = {
     "-ordinal": (["-ordinal", "-trainer", "device"], 11),
     "-trainer sharded": (["-trainer", "sharded"], 13),
     "-devices": (["-trainer", "sharded", "-devices", "2"], 13),
-    "-kernel sum(se_iso,lin_ard)": (["-kernel", "sum(se_iso,lin_ard)"], 8),
-    "-kernel sm2": (["-kernel", "sm2"], 8),
 }
 
 

@@ -377,5 +377,14 @@ def test_artifacts_cross_packages(name, tmp_path):
 @pytest.mark.parametrize("structural", ["sum(se_iso,lin_ard)",
                                         "prod(se_ard,cosine)", "sm2"])
 def test_combinators_not_ported(structural):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tk.resolve_family(structural)
+    """The structural names the port once refused now resolve to their
+    family, whose name round-trips and equals JAX's; ``sm2``, the CLI's
+    shorthand, is ``sm_family(2)``."""
+    if structural == "sm2":
+        family, jfamily = tk.sm_family(2), jk.sm_family(2)
+    else:
+        family, jfamily = (tk.resolve_family(structural),
+                           jk.resolve_family(structural))
+        assert family.name == structural
+    assert family.name == jfamily.name
+    assert tk.resolve_family(family.name) is family

@@ -135,8 +135,8 @@ def test_se_iso_kernel(rng):
 def test_resolve_family():
     assert resolve_family("se_iso") is SeIso
     assert resolve_family("se_fat").name == "se_fat"
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-        resolve_family("sum(se_iso,lin_ard)")
+    with pytest.raises(KeyError, match="unknown kernel family"):
+        resolve_family("sum(se_iso,bogus)")
 
 
 @pytest.mark.parametrize("jitter", [None, 1e-6])

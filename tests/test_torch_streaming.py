@@ -208,8 +208,8 @@ def test_checkpoint_port_to_jax(rng, tmp_path):
     jart, _ = jckpt.load_model(path)
     for got, want in zip(_predict_port(tart, Xs), _predict_jax(jart, Xs)):
         _close(got, want)
-    bad = dataclasses.replace(tart, family_name="sum(se_iso,lin_ard)")
-    with pytest.raises(NotImplementedError, match=r"sum\(se_iso,lin_ard\)"):
+    bad = dataclasses.replace(tart, family_name="sum(se_iso,bogus)")
+    with pytest.raises(KeyError, match="unknown kernel family 'bogus'"):
         tckpt.save_model(str(tmp_path / "bad.npz"), bad)
 
 
