@@ -2,8 +2,10 @@
 """Drive gpr_tpu_torch's streaming serving and training paths, the
 README's Quick-start path, bench.py's flagship se_fat leg, the default
 streaming route, the base kernel families, the composite families (the
-combinators, the ICM task kernel, the spectral mixture), per-row sigma2 and
-the command-line trainer/predictor, once on one NVIDIA GPU.
+combinators, the ICM task kernel, the spectral mixture), per-row sigma2,
+the Gaussian-likelihood extensions (warped, online, PITC, Student-t, exact,
+batched tasks) and the command-line trainer/predictor, once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -164,7 +166,28 @@ Phases, each printed on its own line:
    its f64 twin (evidence 2e-5, each gradient group, the sigma2 vector's
    too, 1e-3; masked rows get no sigma2 gradient), no kernel launched;
    the median of 5 times and the peak memory.
-16. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
+16. gaussian_ext -- the Gaussian-likelihood extensions on the same draw
+   (SE-iso at log_ell 0.5, sigma2 0.1, jitter 1e-6), each against its f64
+   twin within the section 2 bounds (evidence 2e-5, each gradient group
+   1e-3): the warped evidence (the K = 3 default warp, block 8,192,
+   impl=None) must launch #1 and #3 once each and is held against the f32
+   plain loop too, the warp's gradient group included; 5 iterations of
+   ``fit_warped`` (as many #1 as #3 launches) and the warped moments at the
+   1M points; online updates of 10 batches of 100,000 rows (one #1 launch
+   each) and a downdate of the last, against the streaming evidence (2e-5)
+   and coefficients (1e-3) of the 900,000 rows left; PITC at block 256;
+   bench.py's student-t leg (one dense E-step sweep, the dense M-step with
+   noise 0.1 / lam) and ``fit_t(block_size=16384, n_em=2,
+   m_step_iters=3)``, whose lam_hat must lie in (0, (nu+1)/nu]; the exact
+   GP on the first 20,000 rows in f64 (evidence and LOO with gradients,
+   finite; Titsias' bound below the exact evidence and rising for Z = the
+   first 100, 300, 1,000, 3,000 rows; 100,000 means and positive
+   variances, and mu(X) = y - sigma2 alpha within 1e-8); 4 tasks sharing X
+   (bench's y and three draws of default_rng(4)) through
+   ``batched_value_and_grad``: streaming, 4 launches each of #1 and #3,
+   each task against its own f32 loop and f64 twin, and dense (vmap) at
+   100,000 rows against each task's f64 twin.  Times: median of 3.
+17. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
    bench's draw (the first 200,000 rows of X with the fit phase's targets;
    rows 200,000-299,999 to test on), se_fat with -n-inducing 300 -dim-red 8
    -log-het-sked -5 -multiscale -inducing-init first -seed 0: (a) the host
@@ -180,7 +203,12 @@ Phases, each printed on its own line:
    -kernel sm2 (its keyless init from the training rows' spectrum); (f)
    -kernel se_iso -tasks 4 -coreg-rank 2 on the same rows with bench's
    ICM task ids as a last input column (and on its test rows), whose
-   -verbose stderr must print a finite 4 x 4 B.  Each
+   -verbose stderr must print a finite 4 x 4 B; (g) -kernel se_iso
+   -n-inducing 300 with -trainer device and -pitc-block 256, -warp 3 or
+   -student-t 4, and -exact and -exact -loo on the first 20,000 rows, each
+   served by -cmd test -with-stddev as in (c) (a warped model's means are
+   the library's warped_predict_moments, an exact one's its dense
+   posterior).  Each
    command's wall time, iterations and evaluations (the device trainer
    prints them), the log evidence (recomputed here in f64) and SMSE, which
    CSV parser ran, and the wall time of -cmd test on one row (what every
@@ -199,6 +227,7 @@ is ``{"ok": true, "device": {...}}``.  Any failed check raises (exit code
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -211,7 +240,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gpr_tpu_torch.convert import from_jax_params, params_from_artifact
+from gpr_tpu_torch import cli
+from gpr_tpu_torch.convert import (
+    from_jax_params,
+    params_from_artifact,
+    warp_from_jax,
+)
 from gpr_tpu_torch.io import load_model, native
 from gpr_tpu_torch.kernels import (
     FAMILIES,
@@ -224,7 +258,11 @@ from gpr_tpu_torch.kernels import (
 from gpr_tpu_torch.kernels.base import hyper_fields, hyper_leaves, static_fields
 from gpr_tpu_torch.models import streaming
 from gpr_tpu_torch.models.fitc import calc_inducing
-from gpr_tpu_torch.numerics.linalg import inv_tri_upper
+from gpr_tpu_torch.numerics.linalg import (
+    cholesky_upper,
+    inv_tri_upper,
+    solve_tri_right,
+)
 from gpr_tpu_torch.ops import _build, fused_stats
 from gpr_tpu_torch.ops.gemm_chain import (
     MAX_M,
@@ -237,6 +275,7 @@ from gpr_tpu_torch.models import (
     choose_kmeans_inputs,
     choose_n_random_inputs,
     co_variance_predictor,
+    CoVariancePredictor,
     cov_sample,
     cov_sampler,
     covariances_fic,
@@ -248,6 +287,34 @@ from gpr_tpu_torch.models import (
     predict_means,
     predict_variances,
     sample_fic_blocked,
+)
+from gpr_tpu_torch.models.exact import (
+    calc_exact,
+    exact_trained,
+    log_evidence_exact,
+    loo_objective_exact,
+    predict_means_exact,
+    predict_variances_exact,
+)
+from gpr_tpu_torch.models.multitask import batched_value_and_grad
+from gpr_tpu_torch.models.online import (
+    online_downdate,
+    online_init,
+    online_log_evidence,
+    online_predictors,
+    online_update,
+)
+from gpr_tpu_torch.models.pitc import pitc_log_evidence
+from gpr_tpu_torch.models.robust import fit_t, t_em_sweeps
+from gpr_tpu_torch.models.warped import (
+    WARP_FIELDS,
+    default_warp_params,
+    fit_warped,
+    make_warped_pack,
+    warp,
+    warp_inv,
+    warped_log_evidence,
+    warped_predict_moments,
 )
 from gpr_tpu_torch.optim import (
     Bailout,
@@ -2081,6 +2148,446 @@ def hetero_phase(dev, card: str, data) -> None:
         dev, X32, y32, Z, noise, mask), dev, card)
 
 
+# -- gaussian_ext: the Gaussian-likelihood extensions (warped, online,
+# PITC, Student-t, the exact GP, batched tasks) at bench's draw
+F32 = torch.float32
+EXT_REPS = 3  # timings: median of 3 after a warm-up
+WARP_TERMS = 3
+FIT_WARPED_ITERS = 5
+ONLINE_BATCHES = 10
+PITC_BLOCK = 256
+T_NU = 4.0
+EXACT_ROWS, EXACT_TEST = 20_000, 100_000
+EXACT_M = (100, 300, 1_000, 3_000)  # nested Z: X's first m rows
+TASKS, TASK_DENSE_ROWS = 4, 100_000
+# the tasks' hypers (log_ell, log_sf2, sigma2); targets: bench's y, then
+# three standard-normal draws of default_rng(TASK_SEED)
+TASK_HYPERS = ((0.5, 0.0, 0.1), (0.3, 0.1, 0.2), (0.7, -0.1, 0.1),
+               (0.5, 0.0, 0.3))
+TASK_SEED = 4
+
+
+def ext_kernel(dev, dtype):
+    return SeIso(LOG_ELL, LOG_SF2, device=dev, dtype=dtype)
+
+
+def grads_of(ev, kernel, *extra):
+    """ev.backward(); (ev, the gradients of the kernel's hypers and of each
+    of ``extra``)."""
+    ev.backward()
+    return ev.item(), (kernel.log_ell.grad, kernel.log_sf2.grad,
+                       *(t.grad for t in extra))
+
+
+def leaf(Z, dtype, dev):
+    return torch.as_tensor(Z, dtype=dtype, device=dev).clone()\
+        .requires_grad_(True)
+
+
+def warped_value_and_grad(dev, X, y, Z, impl):
+    """The warped evidence (SE-iso at bench's hypers, the K = 3 default
+    warp, block 8,192, jitter 1e-6) and its gradient groups (log_ell,
+    log_sf2, z, sigma2, the warp's log_a | log_b | c) in X's dtype."""
+    dt = X.dtype
+    k = ext_kernel(dev, dt)
+    wp = default_warp_params(WARP_TERMS, device=dev, dtype=dt)
+    z, s2 = leaf(Z, dt, dev), leaf(SIGMA2, dt, dev)
+    ev = warped_log_evidence(k, wp, z, s2, X, y.to(dt), block_size=BLOCK,
+                             jitter=JITTER, impl=impl)
+    ev, grads = grads_of(ev, k, z, s2)
+    return ev, (*grads, torch.cat([wp.log_a.grad, wp.log_b.grad,
+                                   wp.c.grad]))
+
+
+def ext_time(tag, fn, card, **note) -> float:
+    """Median of EXT_REPS calls after a warm-up, logged with the SM clock
+    and the power draw (and ``note``)."""
+    sampler = clock_log()
+    try:
+        t0 = time.time()
+        ms = median_ms(fn, reps=EXT_REPS)
+        t1 = time.time()
+    finally:
+        samples = read_clock_log(sampler)
+    extra = "".join(f"; {k.replace('_', ' ')} {v}" for k, v in note.items())
+    log(f"time gaussian_ext {tag}: {ms:.3f} ms (median of {EXT_REPS})"
+        f"{extra}; {clock_window(samples, t0, t1)} ({card})")
+    return ms
+
+
+def warped_leg(dev, card, X32, y32, Z) -> None:
+    names = ("log_ell", "log_sf2", "z", "sigma2", "warp")
+    (ev, grads), launches = counted(
+        "gaussian_ext warped", lambda: warped_value_and_grad(
+            dev, X32, y32, Z, None), (FWD_KERNEL, BWD_KERNEL))
+    check("gaussian_ext warped launches", launches[FWD_KERNEL] == 1
+          and launches[BWD_KERNEL] == 1, f"{launches}, want 1 + 1")
+    loop = warped_value_and_grad(dev, X32, y32, Z, "reference")
+    twin = warped_value_and_grad(dev, X32.double(), y32.double(), Z,
+                                 "reference")
+    log(f"gaussian_ext warped f32 (#1, #3) vs the f32 plain loop: "
+        f"{check_twin('warped vs loop', ev, grads, *loop, names)}")
+    log(f"gaussian_ext warped f32 (#1, #3) vs the f64 twin {twin[0]:.3f}: "
+        f"{check_twin('warped vs f64', ev, grads, *twin, names)}")
+    ext_time("warped value+grad f32 (#1, #3)", lambda: warped_value_and_grad(
+        dev, X32, y32, Z, None), card)
+    ext_time("warped value+grad f32 plain loop", lambda:
+             warped_value_and_grad(dev, X32, y32, Z, "reference"), card)
+
+    # fit_warped on bench's training targets, then the observation-space
+    # moments at the 1M training inputs
+    yf = bench_targets(dev, X32)
+    pack = make_pack(ext_kernel(dev, F32), torch.as_tensor(Z, device=dev),
+                     1.0)
+    wp0 = default_warp_params(WARP_TERMS, device=dev, dtype=F32)
+    pack_w, unpack_w = make_warped_pack(pack, wp0)
+    with torch.no_grad():
+        k0, z0, s0, w0 = unpack_w(pack_w.x0)
+        f0 = -float(warped_log_evidence(k0, w0, z0, s0, X32, yf,
+                                        variational=True, block_size=BLOCK,
+                                        jitter=JITTER)) / N
+    t0 = time.perf_counter()
+    (kernel, z, s2, wp, st), launches = counted(
+        "gaussian_ext fit_warped", lambda: fit_warped(
+            X32, yf, pack, wp0, variational=True, block_size=BLOCK,
+            jitter=JITTER, max_iter=FIT_WARPED_ITERS, epsabs=1e-4),
+        (FWD_KERNEL, BWD_KERNEL))
+    secs = time.perf_counter() - t0
+    f = float(st.f)
+    log(f"gaussian_ext fit_warped: {st.n_iter} iterations, {st.n_evals} "
+        f"evaluations ({launches[FWD_KERNEL]} + {launches[BWD_KERNEL]} "
+        f"launches), mean NLL {f0:.6f} -> {f:.6f}, {secs:.2f} s = "
+        f"{1e3 * secs / st.n_evals:.1f} ms per evaluation; warp a "
+        f"{torch.exp(wp.log_a).tolist()} ({card})")
+    check("gaussian_ext fit_warped", st.n_iter >= 1 and np.isfinite(f)
+          and f < f0 and launches[FWD_KERNEL] == launches[BWD_KERNEL],
+          f"mean NLL {f0} -> {f}, {launches}")
+    with torch.no_grad():
+        inducing, r_mat, coeffs = streaming.streaming_coeffs(
+            kernel, z, s2, X32, warp(wp, yf), jitter=JITTER,
+            block_size=BLOCK)
+        mu = streaming.predict_means_blocked(kernel, z, coeffs, X32,
+                                             block_size=65_536)
+        var = streaming.predict_variances_blocked(
+            kernel, z, inducing.chol_km, r_mat, X32, s2, block_size=65_536)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m1, v1 = warped_predict_moments(wp, mu, torch.clamp(var, min=0.0))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    ok = bool(torch.isfinite(m1).all() and torch.isfinite(v1).all()
+              and (v1 >= 0).all())
+    log(f"gaussian_ext warped_predict_moments: {N} points x 20 nodes in "
+        f"{1e3 * secs:.1f} ms, finite {ok}; mean |E[y*] - g^-1(mu)| "
+        f"{float((m1 - warp_inv(wp, mu)).abs().mean()):.3e} ({card})")
+    check("gaussian_ext warped_predict_moments", ok, "non-finite moments")
+
+
+def online_leg(dev, card, X32, y32, Z) -> None:
+    """1M rows in ONLINE_BATCHES batches through online_update (block
+    8,192), the last one downdated; held against the streaming evidence
+    and coefficients of the rows that remain, in f64."""
+    k32, z32 = ext_kernel(dev, F32), torch.as_tensor(Z, device=dev)
+    rows = N // ONLINE_BATCHES
+
+    def run():
+        times = []
+        with torch.no_grad():
+            st = online_init(k32, z32, SIGMA2, jitter=JITTER)
+            for i in range(ONLINE_BATCHES):
+                t0 = time.perf_counter()
+                st = online_update(k32, st, X32[i * rows:(i + 1) * rows],
+                                   y32[i * rows:(i + 1) * rows],
+                                   block_size=BLOCK)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            st = online_downdate(k32, st, X32[-rows:], y32[-rows:],
+                                 block_size=BLOCK)
+            torch.cuda.synchronize()
+        return st, times, 1e3 * (time.perf_counter() - t0)
+
+    (st, times, down_ms), launches = counted("gaussian_ext online", run,
+                                             (FWD_KERNEL,))
+    check("gaussian_ext online launches", launches[FWD_KERNEL]
+          == ONLINE_BATCHES + 1 and launches[BWD_KERNEL] == 0,
+          f"{launches}, want {ONLINE_BATCHES + 1} + 0")
+    keep = N - rows
+    k64, z64 = ext_kernel(dev, torch.float64), z32.double()
+    X64, y64 = X32[:keep].double(), y32[:keep].double()
+    with torch.no_grad():
+        ev = float(online_log_evidence(st))
+        mp, _ = online_predictors(st)
+        ev64 = float(streaming.streaming_log_evidence(
+            k64, z64, SIGMA2, X64, y64, jitter=JITTER, block_size=BLOCK,
+            impl="reference"))
+        _, _, c64 = streaming.streaming_coeffs(
+            k64, z64, SIGMA2, X64, y64, jitter=JITTER, block_size=BLOCK,
+            impl="reference")
+    rel, crel = (ev - ev64) / abs(ev64), rel_norm(mp.coeffs, c64)
+    n_live = float(st.stats.n + st.stats_lo.n)
+    log(f"gaussian_ext online: {ONLINE_BATCHES} updates of {rows} rows "
+        f"({statistics.median(times):.2f} ms median, {min(times):.2f}-"
+        f"{max(times):.2f}), 1 downdate ({down_ms:.2f} ms); {n_live:.0f} "
+        f"rows live; evidence {ev:.3f} vs the f64 streaming twin on them "
+        f"{ev64:.3f} (rel {rel:+.2e}), coefficients rel {crel:.2e} "
+        f"({card})")
+    check("gaussian_ext online", abs(rel) <= 2e-5 and crel <= 1e-3
+          and n_live == keep, f"evidence rel {rel:.3e}, coeffs {crel:.3e}, "
+          f"{n_live} rows")
+
+
+def pitc_value_and_grad(dev, X, y, Z):
+    dt = X.dtype
+    k = ext_kernel(dev, dt)
+    z, s2 = leaf(Z, dt, dev), leaf(SIGMA2, dt, dev)
+    ev = pitc_log_evidence(k, z, s2, X, y.to(dt), block_size=PITC_BLOCK,
+                           jitter=JITTER)
+    return grads_of(ev, k, z, s2)
+
+
+def pitc_leg(dev, card, X32, y32, Z) -> None:
+    names = ("log_ell", "log_sf2", "z", "sigma2")
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    (ev, grads), launches = counted("gaussian_ext pitc", lambda:
+                                    pitc_value_and_grad(dev, X32, y32, Z),
+                                    ())
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check("gaussian_ext pitc launches", not any(launches.values()),
+          f"{launches}")
+    twin = pitc_value_and_grad(dev, X32.double(), y32.double(), Z)
+    log(f"gaussian_ext pitc f32 (block {PITC_BLOCK}) vs the f64 twin "
+        f"{twin[0]:.3f}: {check_twin('pitc vs f64', ev, grads, *twin, names)}")
+    ext_time(f"pitc value+grad f32 block {PITC_BLOCK}", lambda:
+             pitc_value_and_grad(dev, X32, y32, Z), card,
+             peak_memory=f"{peak / 2**20:.1f} MiB above the data")
+
+
+def robust_m_step(dev, X, y, Z, lam):
+    """bench.py's student-t M-step: the dense evidence with noise 0.1 / lam
+    and its gradient groups (log_ell, log_sf2, z), in X's dtype."""
+    dt = X.dtype
+    k = ext_kernel(dev, dt)
+    z = leaf(Z, dt, dev)
+    ev = log_evidence(k, z, SIGMA2 / lam.to(dt), X, y.to(dt), jitter=JITTER)
+    return grads_of(ev, k, z)
+
+
+def robust_leg(dev, card, X32, y32, Z) -> None:
+    k32, z32 = ext_kernel(dev, F32), torch.as_tensor(Z, device=dev)
+
+    def e_step():
+        with torch.no_grad():
+            return t_em_sweeps(k32, z32, SIGMA2, X32, y32, nu=T_NU, sweeps=1,
+                               jitter=JITTER)[0]
+
+    lam = e_step()
+    (ev, grads), launches = counted("gaussian_ext robust", lambda:
+                                    robust_m_step(dev, X32, y32, Z, lam), ())
+    check("gaussian_ext robust launches", not any(launches.values()),
+          f"{launches}")
+    twin = robust_m_step(dev, X32.double(), y32.double(), Z, lam)
+    log(f"gaussian_ext robust: one E-step sweep, lam in "
+        f"[{float(lam.min()):.4f}, {float(lam.max()):.4f}]; the dense "
+        f"M-step f32 vs the f64 twin {twin[0]:.3f}: "
+        f"{check_twin('robust vs f64', ev, grads, *twin, names=('log_ell', 'log_sf2', 'z'))}")
+    ext_time("student-t E-step sweep f32 (dense)", e_step, card)
+    ext_time("student-t M-step value+grad f32 (dense)", lambda:
+             robust_m_step(dev, X32, y32, Z, lam), card)
+
+    # fit_t streaming on the per-row sigma2 path (the plain loop)
+    yf = bench_targets(dev, X32)
+    pack = make_pack(ext_kernel(dev, F32), z32, SIGMA2)
+    t0 = time.perf_counter()
+    *_, lam_hat, st = fit_t(X32, yf, pack, nu=T_NU, n_em=2, m_step_iters=3,
+                            block_size=16_384, jitter=JITTER, epsabs=1e-4)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    top = (T_NU + 1.0) / T_NU
+    ok = bool(torch.isfinite(lam_hat).all() and (lam_hat > 0).all()
+              and (lam_hat <= top).all())
+    log(f"gaussian_ext fit_t (block 16384, 2 EM rounds of 3 iterations, "
+        f"epsabs 1e-4): "
+        f"{secs:.2f} s; last M-step {st.n_iter} iterations, {st.n_evals} "
+        f"evaluations, mean NLL {float(st.f):.6f}; lam_hat in "
+        f"[{float(lam_hat.min()):.4f}, {float(lam_hat.max()):.4f}] (bound "
+        f"(nu+1)/nu = {top}), {int((lam_hat < 0.1).sum())} rows below 0.1 "
+        f"({card})")
+    check("gaussian_ext fit_t", ok, "lam_hat not finite in (0, (nu+1)/nu]")
+
+
+def titsias_bound(kernel, z, X, y, sigma2) -> float:
+    """Titsias' collapsed variational bound log N(y; 0, Q + sigma2 I) -
+    sum(r) / (2 sigma2), Q = Knm (Km + jitter I)^-1 Kmn and r = diag(K -
+    Q), by the Woodbury identity: a lower bound of the exact evidence that
+    rises as inducing rows are added (Titsias 2009)."""
+    n = X.shape[0]
+    v = solve_tri_right(kernel.k_cross(X, z),
+                        cholesky_upper(kernel.k_upper(z), JITTER))
+    r = kernel.k_diag(X) - torch.sum(v * v, dim=1)
+    eye = torch.eye(v.shape[1], dtype=v.dtype, device=v.device)
+    c = cholesky_upper(eye + v.T @ v / sigma2, 0.0)
+    w = torch.linalg.solve_triangular(c.T, (v.T @ y)[:, None],
+                                      upper=False)[:, 0]
+    log_det = n * math.log(sigma2) + 2.0 * torch.sum(torch.log(torch.diag(c)))
+    quad = (torch.dot(y, y) - torch.dot(w, w) / sigma2) / sigma2
+    return float(-0.5 * (log_det + quad + n * math.log(2.0 * math.pi))
+                 - torch.sum(r) / (2.0 * sigma2))
+
+
+def exact_leg(dev, card, X32, yf) -> None:
+    """bench's first EXACT_ROWS rows in f64: the exact evidence and LOO
+    objective with their gradients, Titsias' bound below it and rising at
+    each m of EXACT_M, and serving at EXACT_TEST points."""
+    X, y = X32[:EXACT_ROWS].double(), yf[:EXACT_ROWS].double()
+    f64 = torch.float64
+
+    def value_and_grad(obj):
+        k = ext_kernel(dev, f64)
+        s2 = leaf(SIGMA2, f64, dev)
+        return grads_of(obj(k, X, y, s2), k, s2)
+
+    for tag, obj in (("evidence", log_evidence_exact),
+                     ("LOO", loo_objective_exact)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        val, grads = value_and_grad(obj)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        finite = np.isfinite(val) and all(bool(torch.isfinite(g))
+                                          for g in grads)
+        log(f"gaussian_ext exact {tag} value+grad f64 at {EXACT_ROWS} rows: "
+            f"{val:.4f}, grads (log_ell, log_sf2, sigma2) "
+            f"{[round(float(g), 4) for g in grads]}; {1e3 * secs:.1f} ms, "
+            f"peak {peak / 2**30:.2f} GiB above the data ({card})")
+        check(f"gaussian_ext exact {tag}", finite, "not finite")
+        if tag == "evidence":
+            exact = val
+    k = ext_kernel(dev, f64)
+    with torch.no_grad():
+        bounds = [titsias_bound(k, X[:m], X, y, SIGMA2) for m in EXACT_M]
+        fitc_var = [float(log_evidence(k, X[:m], SIGMA2, X, y,
+                                       variational=True, jitter=JITTER,
+                                       factorization="chol"))
+                    for m in EXACT_M]
+    slack = 1e-9 * abs(exact)
+    log(f"gaussian_ext exact {exact:.3f} vs Titsias' bound (Z = the first m "
+        f"rows): " + ", ".join(f"m {m}: {b:.3f}" for m, b in
+                               zip(EXACT_M, bounds))
+        + "; the library's variational FITC evidence (FITC's diagonal in "
+        "its noise, not a bound): " + ", ".join(
+            f"m {m}: {b:.3f}" for m, b in zip(EXACT_M, fitc_var))
+        + f" ({card})")
+    check("gaussian_ext exact bound", all(b <= exact + slack for b in bounds)
+          and all(b1 <= b2 + slack for b1, b2 in zip(bounds, bounds[1:])),
+          f"bounds {bounds} against {exact}")
+    with torch.no_grad():
+        tr = exact_trained(calc_exact(k, X, SIGMA2), y)
+        Xs = X32[EXACT_ROWS:EXACT_ROWS + EXACT_TEST].double()
+        rows = cli.EXACT_SERVE_ROWS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        means = torch.cat([predict_means_exact(k, tr, Xs[i:i + rows])
+                           for i in range(0, EXACT_TEST, rows)])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        var = torch.cat([predict_variances_exact(k, tr, Xs[i:i + rows])
+                         for i in range(0, EXACT_TEST, rows)])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        # the training-input identity mu(X) = y - sigma2 alpha
+        ident = rel_norm(predict_means_exact(k, tr, X[:rows]),
+                         y[:rows] - SIGMA2 * tr.alpha[:rows])
+    ok = bool(torch.isfinite(means).all() and (var > 0).all())
+    log(f"gaussian_ext exact serving: {EXACT_TEST} means {1e3 * (t1 - t0):.1f}"
+        f" ms, variances {1e3 * (t2 - t1):.1f} ms ({rows} rows a block), "
+        f"finite and positive {ok}; mu(X) vs y - sigma2 alpha rel "
+        f"{ident:.2e} ({card})")
+    check("gaussian_ext exact serving", ok and ident <= 1e-8,
+          f"finite {ok}, identity {ident:.3e}")
+
+
+def task_value_and_grad(dev, X, y, Z, hypers, impl):
+    """One task's streaming value+grad (log_ell, log_sf2, z, sigma2)."""
+    dt = X.dtype
+    log_ell, log_sf2, sigma2 = hypers
+    k = SeIso(log_ell, log_sf2, device=dev, dtype=dt)
+    z, s2 = leaf(Z, dt, dev), leaf(sigma2, dt, dev)
+    ev = streaming.streaming_log_evidence(k, z, s2, X, y.to(dt),
+                                          jitter=JITTER, block_size=BLOCK,
+                                          impl=impl)
+    return grads_of(ev, k, z, s2)
+
+
+def multitask_leg(dev, card, X32, y32, Z) -> None:
+    names = ("log_ell", "log_sf2", "z", "sigma2")
+    draws = np.random.default_rng(TASK_SEED).standard_normal(
+        (TASKS - 1, N)).astype(np.float32)
+    Y = torch.cat([y32[None], torch.as_tensor(draws, device=dev)])
+    hyp = np.array(TASK_HYPERS, dtype=np.float32)
+    k = SeIso(hyp[:, 0], hyp[:, 1], device=dev, dtype=F32)
+    s2 = torch.as_tensor(hyp[:, 2], device=dev)
+    zs = torch.as_tensor(Z, device=dev).expand(TASKS, M, D)
+    vg = batched_value_and_grad(block_size=BLOCK, jitter=JITTER)
+    (vals, (gp, gz, gs)), launches = counted(
+        "gaussian_ext multitask", lambda: vg(k, zs, s2, X32.expand(
+            TASKS, N, D), Y), (FWD_KERNEL, BWD_KERNEL))
+    check("gaussian_ext multitask launches", launches[FWD_KERNEL] == TASKS
+          and launches[BWD_KERNEL] == TASKS,
+          f"{launches}, want {TASKS} + {TASKS}")
+    for i, hypers in enumerate(TASK_HYPERS):
+        got = (-vals[i].item(), (-gp["log_ell"][i], -gp["log_sf2"][i],
+                                 -gz[i], -gs[i]))
+        loop = task_value_and_grad(dev, X32, Y[i], Z, hypers, "reference")
+        twin = task_value_and_grad(dev, X32.double(), Y[i], Z, hypers,
+                                   "reference")
+        log(f"gaussian_ext multitask task {i} {hypers}: vs its f32 plain "
+            f"loop {check_twin(f'task {i} vs loop', *got, *loop, names)}; vs"
+            f" its f64 twin {check_twin(f'task {i} vs f64', *got, *twin, names)}")
+    ext_time(f"multitask streaming value+grad f32, {TASKS} tasks (#1, #3 "
+             f"each)", lambda: vg(k, zs, s2, X32.expand(TASKS, N, D), Y),
+             card)
+
+    # the dense branch: the tasks under torch.func.vmap
+    rows = TASK_DENSE_ROWS
+    vd = batched_value_and_grad(jitter=JITTER)
+    args = (k, zs, s2, X32[:rows].expand(TASKS, rows, D), Y[:, :rows])
+    vals, (gp, gz, gs) = vd(*args)
+    for i, (log_ell, log_sf2, sigma2) in enumerate(TASK_HYPERS):
+        k64 = SeIso(log_ell, log_sf2, device=dev, dtype=torch.float64)
+        z, s2_i = leaf(Z, torch.float64, dev), leaf(sigma2, torch.float64,
+                                                    dev)
+        ev = log_evidence(k64, z, s2_i, X32[:rows].double(),
+                          Y[i, :rows].double(), jitter=JITTER,
+                          factorization="chol")
+        twin = grads_of(ev, k64, z, s2_i)
+        got = (-vals[i].item(), (-gp["log_ell"][i], -gp["log_sf2"][i],
+                                 -gz[i], -gs[i]))
+        log(f"gaussian_ext multitask dense ({rows} rows) task {i} vs its f64"
+            f" twin: {check_twin(f'dense task {i} vs f64', *got, *twin, names)}")
+    ext_time(f"multitask dense value+grad f32, {TASKS} tasks x {rows} rows "
+             f"(vmap)", lambda: vd(*args), card)
+
+
+def gaussian_ext_phase(dev, card: str, data) -> None:
+    X32, y32, Z = data
+    t0 = time.perf_counter()
+    for leg in (warped_leg, online_leg, pitc_leg, robust_leg):
+        t1 = time.perf_counter()
+        leg(dev, card, X32, y32, Z)
+        log(f"gaussian_ext {leg.__name__}: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    exact_leg(dev, card, X32, bench_targets(dev, X32))
+    log(f"gaussian_ext exact_leg: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    multitask_leg(dev, card, X32, y32, Z)
+    log(f"gaussian_ext multitask_leg: {time.perf_counter() - t1:.1f} s")
+    log(f"gaussian_ext phase: {time.perf_counter() - t0:.1f} s ({card})")
+
+
 # -- cli: the command-line trainer/predictor in subprocesses
 CLI_TRAIN, CLI_TEST = 200_000, 100_000  # rows of bench's draw
 CLI_COMMON = ("-n-inducing", "300", "-dim-red", "8", "-log-het-sked", "-5",
@@ -2092,6 +2599,19 @@ CLI_FAMILY = ("-kernel", "matern52", "-n-inducing", "300", "-inducing-init",
 CLI_SM2 = ("-kernel", "sm2", *CLI_FAMILY[2:])
 CLI_ICM = ("-kernel", "se_iso", "-tasks", str(ICM_TASKS), "-coreg-rank",
            str(ICM_RANK), *CLI_FAMILY[2:])
+# the Gaussian-likelihood extensions (-exact on the first EXACT_ROWS rows)
+CLI_EXT_BASE = ("-kernel", "se_iso", "-seed", "0", "-verbose")
+CLI_EXT = {
+    "pitc": (*CLI_EXT_BASE, "-n-inducing", "300", "-inducing-init", "first",
+             "-trainer", "device", "-pitc-block", "256", "-max-iter", "2"),
+    "warp": (*CLI_EXT_BASE, "-n-inducing", "300", "-inducing-init", "first",
+             "-trainer", "device", "-warp", "3", "-max-iter", "5"),
+    "student-t": (*CLI_EXT_BASE, "-n-inducing", "300", "-inducing-init",
+                  "first", "-trainer", "device", "-student-t", "4",
+                  "-max-iter", "5"),
+    "exact": (*CLI_EXT_BASE, "-exact", "-max-iter", "2"),
+    "exact-loo": (*CLI_EXT_BASE, "-exact", "-loo", "-max-iter", "2"),
+}
 
 
 def cli_run(tmp, tag, argv, stdin_path):
@@ -2147,6 +2667,69 @@ def cli_report(tag, secs, err, model, dev, Xtr, ytr, card) -> None:
     check(f"cli {tag}", np.isfinite(l) and bool(smse), "evidence or SMSE")
 
 
+def cli_ext_report(tag, secs, err, card) -> None:
+    """Wall time, the last ``iter`` line's iterations and evaluations (-exact
+    prints none), the ``result:`` line and, for -student-t, its weights
+    line."""
+    steps = re.findall(r"^iter +([0-9]+): f=.* evals=([0-9]+)", err, re.M)
+    result = re.findall(r"^result: (.*)$", err, re.M)
+    weights = re.findall(r"^(student-t: .*)$", err, re.M)
+    counts = (f"last M-step or run {steps[-1][0]} iterations, {steps[-1][1]}"
+              f" evaluations" if steps else "no iteration lines (-exact "
+              "prints none)")
+    log(f"cli {tag}: {secs:.2f} s wall; {counts}; result: "
+        f"{result[-1] if result else 'not printed'}"
+        f"{'; ' + weights[-1] if weights else ''} ({card})")
+    check(f"cli {tag}", bool(result) and "nan" not in result[-1].lower(),
+          "no finite result line")
+
+
+def library_means(art, extra, kernel, z, xs) -> np.ndarray:
+    """What -cmd test serves for an artifact, from the library: the dense
+    exact posterior (``cli.serve_exact``), a warped model's observation
+    mean (``warped_predict_moments``) or the predictor's means."""
+    if "exact" in extra:
+        return cli.serve_exact(kernel, art, xs)[0]
+    dev = xs.device
+    t = {k: torch.as_tensor(getattr(art, k), device=dev)
+         for k in ("coeffs", "chol_km", "r_mat")}
+    mu = predict_means(kernel, MeanPredictor(z=z, coeffs=t["coeffs"]), xs)
+    if "warp_log_a" not in extra:
+        return mu.cpu().numpy()
+    wp = warp_from_jax({f: extra[f"warp_{f}"] for f in WARP_FIELDS},
+                       device=dev, dtype=torch.float64)
+    cvp = CoVariancePredictor(z=z, chol_km=t["chol_km"], r_mat=t["r_mat"])
+    var = predict_variances(kernel, cvp, xs, art.sigma2, predictive=True)
+    return warped_predict_moments(wp, mu, torch.clamp(var, min=0.0))[0]\
+        .cpu().numpy()
+
+
+def cli_serve(tmp, tag, model, csv, dev, card) -> None:
+    """-cmd test -with-stddev of ``model`` on ``csv``: CLI_TEST finite lines
+    with positive standard deviations, whose means equal the library's
+    (``library_means``) as printed."""
+    xs_raw = torch.as_tensor(native.load_csv_file(csv), device=dev)
+    secs, out, _ = cli_run(tmp, f"test-{tag}", (
+        "-cmd", "test", "-model", model, "-with-stddev"), csv)
+    lines = Path(out).read_text().splitlines()
+    vals = np.array([[float(v) for v in line.split(",")] for line in lines])
+    art, kernel, z, _ = cli_artifact(model, dev)
+    extra = load_model(model)[1]
+    xs = (xs_raw - torch.as_tensor(art.input_means, device=dev)) / \
+        torch.as_tensor(art.input_stddevs, device=dev)
+    with torch.no_grad():
+        means = library_means(art, extra, kernel, z, xs)
+    want_text = [f"{v:f}" for v in means + art.target_mean]
+    same = sum(line.split(",")[0] == w for line, w in zip(lines, want_text))
+    log(f"cli test {tag}: {secs:.2f} s wall; {len(lines)} lines, finite "
+        f"{bool(np.isfinite(vals).all())}, stddev > 0 "
+        f"{bool((vals[:, 1] > 0).all())}; {same} of {CLI_TEST} means equal "
+        f"to the library's as printed ({card})")
+    check(f"cli test {tag}", vals.shape == (CLI_TEST, 2)
+          and bool(np.isfinite(vals).all()) and same == CLI_TEST,
+          f"shape {vals.shape}, {same} means equal")
+
+
 def cli_coregionalization(err) -> np.ndarray:
     """The B matrix that ``-tasks -verbose`` prints on stderr."""
     text = err[err.index("coregionalization B"):err.index("inter-task")]
@@ -2155,6 +2738,9 @@ def cli_coregionalization(err) -> np.ndarray:
 
 
 def cli_phase(dev, card: str, data) -> None:
+    # the commands' processes share the card: hand back what this process
+    # holds in PyTorch's cache (the exact GP's leg takes ~30 GiB)
+    torch.cuda.empty_cache()
     X32, _, _ = data
     yf = bench_targets(dev, X32)
     Xtr = X32[:CLI_TRAIN].double()
@@ -2227,34 +2813,28 @@ def cli_phase(dev, card: str, data) -> None:
         check("cli icm B", B.shape == (ICM_TASKS, ICM_TASKS)
               and bool(np.isfinite(B).all()), f"B of shape {B.shape}")
 
+        # the Gaussian-likelihood extensions, -exact on the first
+        # EXACT_ROWS training rows
+        exact_csv = f"{tmp}/train_exact.csv"
+        np.savetxt(exact_csv, np.column_stack([
+            Xtr[:EXACT_ROWS].cpu().numpy(), ytr[:EXACT_ROWS].cpu().numpy()]),
+            fmt="%.9g", delimiter=",")
+        ext_models = []
+        for tag, flags in CLI_EXT.items():
+            model = f"{tmp}/{tag}.npz"
+            secs, _, err = cli_run(tmp, tag, ("-cmd", "train", "-model",
+                                              model, *flags),
+                                   exact_csv if "-exact" in flags
+                                   else train_csv)
+            cli_ext_report(tag, secs, err, card)
+            ext_models.append((tag, model, test_csv))
+
         for tag, model, csv in (("host", host, test_csv),
                                 ("device-resumed", resumed, test_csv),
                                 ("matern52", matern, test_csv),
                                 ("sm2", sm2, test_csv),
-                                ("icm", icm, icm_test_csv)):
-            xs_raw = torch.as_tensor(native.load_csv_file(csv), device=dev)
-            secs, out, _ = cli_run(tmp, f"test-{tag}", (
-                "-cmd", "test", "-model", model, "-with-stddev"), csv)
-            lines = Path(out).read_text().splitlines()
-            vals = np.array([[float(v) for v in line.split(",")]
-                             for line in lines])
-            art, kernel, z, _ = cli_artifact(model, dev)
-            xs = (xs_raw - torch.as_tensor(art.input_means, device=dev)) / \
-                torch.as_tensor(art.input_stddevs, device=dev)
-            with torch.no_grad():
-                means = predict_means(kernel, MeanPredictor(
-                    z=z, coeffs=torch.as_tensor(art.coeffs, device=dev)), xs)
-            want_text = [f"{v:f}" for v in
-                         means.cpu().numpy() + art.target_mean]
-            same = sum(line.split(",")[0] == w
-                       for line, w in zip(lines, want_text))
-            log(f"cli test {tag}: {secs:.2f} s wall; {len(lines)} lines, "
-                f"finite {bool(np.isfinite(vals).all())}, stddev > 0 "
-                f"{bool((vals[:, 1] > 0).all())}; {same} of {CLI_TEST} means "
-                f"equal to the library's predict_means as printed ({card})")
-            check(f"cli test {tag}", vals.shape == (CLI_TEST, 2)
-                  and bool(np.isfinite(vals).all()) and same == CLI_TEST,
-                  f"shape {vals.shape}, {same} means equal")
+                                ("icm", icm, icm_test_csv), *ext_models):
+            cli_serve(tmp, tag, model, csv, dev, card)
     log(f"cli phase: {time.perf_counter() - t0:.2f} s ({card})")
 
 
@@ -2276,6 +2856,7 @@ def main() -> int:
     families_phase(dev, card, data)
     composites_phase(dev, card, data)
     hetero_phase(dev, card, data)
+    gaussian_ext_phase(dev, card, data)
     cli_phase(dev, card, data)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -13,10 +13,13 @@ multi-output model over a trailing task-id column, whose learned B
 standardization (:249-269), L-BFGS evidence maximization with 1 Hz
 throttled verbose reports and a SIGINT-safe best-model bailout (:301-349),
 the host trainer or ``-trainer device`` (with ``-restarts``, ``-polish``,
-the sparse ``-loo`` and ``-checkpoint``/``-resume``), and the npz artifact
-of ``io/checkpoint.py``, which either package loads.  ``-cmd test`` prints
-the means (and ``-with-stddev`` the standard deviations) of a regression
-artifact.
+the sparse ``-loo`` and ``-checkpoint``/``-resume``), the Gaussian-likelihood
+extensions with ``-trainer device`` (``-student-t NU``, ``-warp K``,
+``-pitc-block B``), the exact dense GP (``-exact``, with ``-loo``), and the
+npz artifact of ``io/checkpoint.py``, which either package loads.  ``-cmd
+test`` prints the means (and ``-with-stddev`` the standard deviations) of
+a regression artifact: a warped one's integrate the inverse warp, an exact
+one's come from the dense posterior.
 
 Everything runs in f64, as the reference's LAPACK does, on the card
 (``cuda``) unless ``GPR_TPU_PLATFORM=cpu`` asks for the CPU; with no GPU
@@ -27,10 +30,10 @@ projection, bit-equal to the JAX package's) and from a
 rows) or with the integer that seeds the JAX package's key (cosine's
 default frequencies): these draws differ from the JAX package's.
 
-Flags of modules that are not ported yet (``-exact``, ``-cg``,
-``-pitc-block``, ``-warp``, the likelihood flags, ``-trainer sharded`` and
-``-devices``) pass the JAX package's flag checks in its order, then exit
-naming their ROADMAP.md item.
+Flags of modules that are not ported yet (``-cg``, the classification
+and count likelihood flags, ``-trainer sharded`` and ``-devices``) pass
+the JAX package's flag checks in its order, then exit naming their
+ROADMAP.md item.
 
 Run: ``python3 -m gpr_tpu_torch.cli -cmd train -model m.npz < train.csv``,
 then ``python3 -m gpr_tpu_torch.cli -cmd test -model m.npz < test.csv``.
@@ -52,10 +55,6 @@ F64 = torch.float64
 #: the ROADMAP.md queue 1 item that ports each flag's module
 _NOT_PORTED = (
     ("cg", "-cg", 10),
-    ("exact", "-exact", 9),
-    ("pitc_block", "-pitc-block", 9),
-    ("warp", "-warp", 9),
-    ("student_t", "-student-t", 9),
     ("classify", "-classify", 11),
     ("poisson", "-poisson", 11),
     ("binomial", "-binomial", 11),
@@ -66,8 +65,7 @@ _NOT_PORTED = (
 #: artifact extras of the models that are not ported yet, in the JAX
 #: package's order of dispatch, and their ROADMAP.md queue 1 items
 _NOT_PORTED_EXTRAS = (("poisson", 11), ("negbin", 11), ("ordinal", 11),
-                      ("classify", 11), ("exact_cg", 10), ("exact", 9),
-                      ("warp_log_a", 9))
+                      ("classify", 11), ("exact_cg", 10))
 
 
 def _not_ported(what: str, item: int):
@@ -372,7 +370,8 @@ def read_samples(stream) -> np.ndarray:
 def _check_flags(args, n, big_dim, inputs):
     """The JAX package's flag checks, in its order and with its messages
     (``gpr_tpu/cli.py:336-465``); the data checks of the likelihoods that
-    are not ported are left to those modules."""
+    are not ported are left to those modules.  Returns the number of
+    extension flags given (at most one passes)."""
     if args.tasks is not None:
         if args.tasks < 2:
             raise SystemExit("-tasks T needs T >= 2")
@@ -497,6 +496,7 @@ def _check_flags(args, n, big_dim, inputs):
                 "not in the device checkpoint — -checkpoint/-resume are "
                 "not supported (re-run the fit)"
             )
+    return n_extensions
 
 
 def _refuse_not_ported(args):
@@ -504,10 +504,8 @@ def _refuse_not_ported(args):
     not ported yet."""
     for attr, flag, item in _NOT_PORTED:
         value = getattr(args, attr)
-        if value is None or value is False or (attr == "warp"
-                                               and value <= 0):
-            continue
-        raise _not_ported(flag, item)
+        if value is not None and value is not False:
+            raise _not_ported(flag, item)
     if args.trainer == "sharded":
         raise _not_ported("-trainer sharded", 13)
 
@@ -533,7 +531,7 @@ def cmd_train(args, dev) -> int:
         raise SystemExit("training data needs at least 2 columns (x..., y)")
     inputs, targets = data[:, :-1], data[:, -1]
     n, big_dim = inputs.shape
-    _check_flags(args, n, big_dim, inputs)
+    n_extensions = _check_flags(args, n, big_dim, inputs)
     if args.tasks is not None:
         from .kernels import icm_family
 
@@ -668,6 +666,16 @@ def cmd_train(args, dev) -> int:
             last_report["grad"] = time.time()
             print(f"iter {iter:4d}: |gradient|={norm:.5f}", file=sys.stderr,
                   flush=True)
+
+    if n_extensions:
+        return _train_extension(args, fam, dev, X, y, n_inducing, seed,
+                                build_params, got_signal, old_handler,
+                                target_mean, input_means, input_stddevs)
+
+    if args.exact:
+        signal.signal(signal.SIGINT, old_handler)
+        return _train_exact(args, fam, X, y, seed, build_params, target_mean,
+                            input_means, input_stddevs)
 
     if args.trainer != "host":
         trained = _train_on_device(args, fam, dev, X, y, n_inducing, seed,
@@ -913,6 +921,292 @@ def _train_on_device(args, fam, dev, X, y, n_inducing, seed, build_params,
     return TrainResult(trained, p_f, z_f, s2_f)
 
 
+def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
+                     got_signal, old_handler, target_mean, input_means,
+                     input_stddevs) -> int:
+    """-student-t / -warp / -pitc-block: the Gaussian-likelihood extensions
+    at the CLI surface (the JAX package's ``_train_extension``, its
+    single-device branches).  Each trains through the packed device L-BFGS
+    (``optim.fit_packed_objective``) and writes the regression artifact's
+    schema with the mode's extras:
+
+      * -student-t NU: ``models.robust.fit_t`` (5 EM rounds);
+      * -warp K: ``models.warped.fit_warped`` (variational, streaming);
+        -cmd test integrates the inverse warp by Gauss-Hermite quadrature;
+      * -pitc-block B: the PITC evidence; its artifact serves through the
+        standard predictors.
+
+    -restarts N keeps the lowest final mean-NLL objective; -checkpoint and
+    -resume follow the device trainer's rules (not with -student-t)."""
+    from .models.pitc import pitc_log_evidence
+    from .models.robust import fit_t
+    from .models.warped import default_warp_params, fit_warped
+    from .optim import Bailout, make_pack
+    from .optim.lbfgs_device import fit_packed_objective, value_and_grad
+
+    n = X.shape[0]
+    max_iter = args.max_iter if args.max_iter is not None else 100
+    block_size = args.block_size or 8192
+
+    def start(r):
+        params = build_params(np.random.default_rng(seed + r))
+        return params, _choose_inducing(args, seed + r, params, X,
+                                        n_inducing)
+
+    last_state = {"st": None}
+
+    def on_chunk(st):
+        last_state["st"] = st
+        if args.checkpoint is not None:
+            from .io.resume import save_device_checkpoint
+
+            save_device_checkpoint(args.checkpoint, st)
+        if args.verbose:
+            print(
+                f"iter {int(st.n_iter):4d}: f={float(st.f):.6f} "
+                f"|gradient|={float(torch.linalg.norm(st.g)):.5f} "
+                f"evals={int(st.n_evals)}", file=sys.stderr, flush=True,
+            )
+        if got_signal["flag"]:
+            raise Bailout
+
+    def load_resume_state(pack_x0):
+        if not args.resume or not os.path.exists(args.checkpoint):
+            return None
+        from .io.resume import load_device_checkpoint
+
+        init_state = load_device_checkpoint(args.checkpoint, device=dev)
+        if init_state.x.shape != pack_x0.shape:
+            raise SystemExit(
+                "checkpoint hyper vector does not match this configuration "
+                "— resume requires the same model/data setup"
+            )
+        return init_state
+
+    common = dict(step=args.step, tol=args.tol, epsabs=args.eps / n,
+                  max_iter=max_iter, state_callback=on_chunk)
+
+    def run_one(r):
+        """One fit from start r: ((kernel, z, sigma2, warp), state)."""
+        params0, z0 = start(r)
+        pack = make_pack(params0, z0, args.sigma2)
+        if args.student_t is not None:
+            n_em = 5
+            p, z, s2, lam, st = fit_t(
+                X, y, pack, nu=args.student_t, n_em=n_em,
+                m_step_iters=max(5, max_iter // n_em),
+                **{k: v for k, v in common.items() if k != "max_iter"},
+            )
+            if args.verbose:
+                lam_np = lam.cpu().numpy()
+                print(
+                    f"student-t: {int((lam_np < 0.1).sum())} rows "
+                    f"downweighted below 0.1 (min lam "
+                    f"{float(lam_np.min()):.4f})", file=sys.stderr,
+                )
+            return (p, z, s2, None), st
+        if args.warp:
+            wp0 = default_warp_params(args.warp, device=dev, dtype=X.dtype)
+            p, z, s2, wp, st = fit_warped(
+                X, y, pack, wp0, variational=True, block_size=block_size,
+                init_state=load_resume_state(torch.cat([
+                    pack.x0, pack.x0.new_zeros(3 * args.warp)])),
+                **common,
+            )
+            return (p, z, s2, wp), st
+
+        def neg(x, X, y):
+            params, z, sigma2 = pack.unpack(x)
+            return -(1.0 / n) * pitc_log_evidence(
+                params, z, sigma2, X, y, block_size=args.pitc_block)
+
+        st = fit_packed_objective(value_and_grad(neg), pack, (X, y),
+                                  init_state=load_resume_state(pack.x0),
+                                  **common)
+        p, z, s2 = pack.unpack(st.x)
+        return (p, z, s2, None), st
+
+    best = None
+    try:
+        for r in range(max(1, args.restarts)):
+            try:
+                result, st = run_one(r)
+            except Bailout:
+                st = last_state["st"]
+                if st is None:
+                    raise SystemExit("interrupted before the first iteration")
+                result = _unpack_extension_state(args, st, r, dev, start)
+            # NaN-safe best (lower mean NLL wins; NaN never beats finite)
+            f = float(st.f)
+            key_ = (not math.isfinite(f), f if math.isfinite(f) else 0.0)
+            if best is None or key_ < best[0]:
+                best = (key_, result, st)
+            if args.verbose and args.restarts > 1:
+                print(f"restart {r}: objective {f:.6f} "
+                      f"(best {float(best[2].f):.6f})", file=sys.stderr)
+            if got_signal["flag"]:
+                break
+    finally:
+        signal.signal(signal.SIGINT, old_handler)
+
+    _, result, st = best
+    if args.verbose:
+        print(f"result: objective={float(st.f):.6f} "
+              f"|gradient|={float(torch.linalg.norm(st.g)):.2e}",
+              file=sys.stderr)
+    _write_extension_artifact(args, fam, result, X, y, target_mean,
+                              input_means, input_stddevs, block_size)
+    return 0
+
+
+def _unpack_extension_state(args, st, r, dev, start):
+    """(kernel, z, sigma2, warp) of a bailed-out optimizer state."""
+    from .models.warped import default_warp_params, make_warped_pack
+    from .optim import make_pack
+
+    params0, z0 = start(r)
+    pack = make_pack(params0, z0, args.sigma2)
+    if args.warp:
+        wp0 = default_warp_params(args.warp, device=dev,
+                                  dtype=pack.x0.dtype)
+        return make_warped_pack(pack, wp0)[1](st.x)
+    return (*pack.unpack(st.x), None)
+
+
+@torch.no_grad()
+def _write_extension_artifact(args, fam, result, X, y, target_mean,
+                              input_means, input_stddevs, block_size):
+    """Save the predictor artifact of an extension mode: the standard
+    schema (inducing, coeffs, chol_km, r_mat), so -cmd test serves every
+    mode through the same algebra, and the mode's extras as the JAX package
+    writes them."""
+    from .io.checkpoint import (
+        ModelArtifact,
+        kernel_params_of,
+        save_model,
+        warp_extras,
+    )
+
+    p, z, s2, wp = result
+    if args.student_t is not None:
+        # the converged robust posterior IS a heteroskedastic FITC
+        # posterior; the artifact's sigma2 carries the moment-matched t
+        # noise variance, so the standard test path serves it
+        from .models.fitc import calc_model, calc_trained
+        from .models.robust import t_em_sweeps
+
+        nu = float(args.student_t)
+        lam, _ = t_em_sweeps(p, z, s2, X, y, nu=nu, sweeps=10)
+        model = calc_model(p, X, z, s2 / lam)
+        trained = calc_trained(model, y)
+        coeffs, chol_km, r_mat = (trained.coeffs, model.inducing.chol_km,
+                                  model.r_mat)
+        z = model.inducing.z
+        sigma2 = float(s2) * nu / (nu - 2.0)
+        extra = {"student_t": np.asarray(nu),
+                 "t_scale": np.asarray(float(s2))}
+    elif wp is not None:  # warped
+        from .models.streaming import streaming_trained
+        from .models.warped import warp
+
+        trained = streaming_trained(p, z, s2, X, warp(wp, y),
+                                    variational=True, block_size=block_size)
+        coeffs, chol_km, r_mat = (trained.coeffs,
+                                  trained.model.inducing.chol_km,
+                                  trained.model.r_mat)
+        z = trained.model.inducing.z
+        sigma2 = float(s2)
+        extra = warp_extras(wp)
+    else:  # PITC
+        from .models.pitc import pitc_coeffs
+
+        inducing, r_mat, coeffs = pitc_coeffs(p, z, s2, X, y,
+                                              block_size=args.pitc_block)
+        chol_km, z = inducing.chol_km, inducing.z
+        sigma2 = float(s2)
+        extra = {"pitc_block": np.asarray(args.pitc_block)}
+
+    _report_coregionalization(args, p)
+    host = [t.detach().cpu().numpy() for t in (z, coeffs, chol_km, r_mat)]
+    save_model(args.model, ModelArtifact(
+        family_name=fam.name, kernel_params=kernel_params_of(p),
+        inducing=host[0], coeffs=host[1], chol_km=host[2], r_mat=host[3],
+        sigma2=sigma2, target_mean=target_mean, input_means=input_means,
+        input_stddevs=input_stddevs,
+    ), extra_arrays=extra)
+
+
+def _train_exact(args, fam, X, y, seed, build_params, target_mean,
+                 input_means, input_stddevs) -> int:
+    """-exact: dense GP hyper training (``models.exact.fit_exact``) over
+    the exact evidence or, with -loo, the LOO pseudo-likelihood; -restarts
+    draws fresh kernel inits, each hyper jittered by N(0, 1) draws from
+    ``np.random.default_rng(10_000 + seed + r)`` in the JAX package's leaf
+    order, and keeps the best objective.  The artifact reuses the standard
+    schema: the training inputs as the inducing set, alpha as the coeffs
+    and chol(K + sigma2 I) in the chol_km and r_mat slots, tagged exact=1
+    in the extras."""
+    from .io.checkpoint import ModelArtifact, kernel_params_of, save_model
+    from .kernels.base import declared_names, field_of, kernel_with
+    from .models.exact import fit_exact, loo_log_likelihood, loo_posterior
+
+    objective = "loo" if args.loo else "evidence"
+    best = None
+    for r in range(max(1, args.restarts)):
+        params0 = build_params(np.random.default_rng(seed + r))
+        if r > 0:
+            # -exact has no inducing draw to diversify restarts, and the
+            # deterministic defaults (se_iso's zeros) repeat: jitter every
+            # hyper by ~1 log unit, leaf by leaf in JAX's tree order
+            jrng = np.random.default_rng(10_000 + seed + r)
+            params0 = kernel_with(params0, {
+                name: v + torch.as_tensor(jrng.normal(0.0, 1.0,
+                                                      tuple(v.shape)),
+                                          dtype=v.dtype, device=v.device)
+                for name in declared_names(type(params0))
+                if (v := field_of(params0, name)) is not None})
+        trained, params, sigma2 = fit_exact(
+            params0, X, y, args.sigma2, objective=objective,
+            max_iter=args.max_iter if args.max_iter is not None else 100,
+            # the packed objective is mean-scaled, so -eps applies per
+            # point, as with -trainer device
+            step=args.step, tol=args.tol, epsabs=args.eps / X.shape[0],
+        )
+        score = (float(loo_log_likelihood(trained)) if args.loo
+                 else float(trained.l))
+        if not math.isfinite(score):
+            continue
+        if best is None or score > best[0]:
+            best = (score, trained, params, sigma2)
+        if args.verbose and args.restarts > 1:
+            print(f"restart {r}: {objective} {score:.3f} "
+                  f"(best {best[0]:.3f})", file=sys.stderr)
+    if best is None:
+        raise SystemExit("-exact training diverged (non-finite objective); "
+                         "try a different -sigma2 / -seed")
+    _, trained, params, sigma2 = best
+
+    if args.verbose:
+        mu, _ = loo_posterior(trained)
+        y_np = trained.y.cpu().numpy()
+        resid = y_np - mu.cpu().numpy()
+        smse = float((resid ** 2).mean() / np.var(y_np))
+        print(f"result: log evidence {float(trained.l):.3f}, "
+              f"LOO log p {float(loo_log_likelihood(trained)):.3f}, "
+              f"LOO SMSE {smse:.5f}, sigma2 {float(sigma2):.6f}",
+              file=sys.stderr)
+
+    chol_a = trained.model.chol_a.cpu().numpy()
+    save_model(args.model, ModelArtifact(
+        family_name=fam.name, kernel_params=kernel_params_of(params),
+        inducing=trained.model.z.detach().cpu().numpy(),
+        coeffs=trained.alpha.cpu().numpy(), chol_km=chol_a, r_mat=chol_a,
+        sigma2=float(sigma2), target_mean=target_mean,
+        input_means=input_means, input_stddevs=input_stddevs,
+    ), extra_arrays={"exact": np.float64(1.0)})
+    return 0
+
+
 def cmd_test(args, dev) -> int:
     from .convert import params_from_artifact
     from .io.checkpoint import load_model
@@ -942,20 +1236,90 @@ def cmd_test(args, dev) -> int:
         return torch.tensor(np.asarray(a), dtype=F64, device=dev)
 
     mp = MeanPredictor(z=z, coeffs=t(art.coeffs))
+    cvp = CoVariancePredictor(z=z, chol_km=t(art.chol_km),
+                              r_mat=t(art.r_mat))
+    if "exact" in extra:
+        means, variances = serve_exact(kernel, art, X,
+                                       with_stddev=args.with_stddev,
+                                       predictive=args.predictive)
+        _write_predictions(means + art.target_mean, variances)
+        return 0
+    if "warp_log_a" in extra:
+        # warped artifact: the latent posterior is Gaussian in t-space;
+        # observation-space moments integrate the inverse warp by
+        # Gauss-Hermite quadrature (the predictive t-variance: the observed
+        # y carries the noise through the warp)
+        from .convert import warp_from_jax
+        from .models.warped import WARP_FIELDS, warped_predict_moments
+
+        wp = warp_from_jax({f: extra[f"warp_{f}"] for f in WARP_FIELDS},
+                           device=dev, dtype=F64)
+        with torch.no_grad():
+            mu = predict_means(kernel, mp, X)
+            var = predict_variances(kernel, cvp, X, sigma2, predictive=True)
+            mean_y, var_y = warped_predict_moments(wp, mu,
+                                                   torch.clamp(var, min=0.0))
+        _write_predictions(mean_y.cpu().numpy() + art.target_mean,
+                           var_y.cpu().numpy() if args.with_stddev else None)
+        return 0
     with torch.no_grad():
         means = predict_means(kernel, mp, X).cpu().numpy() + art.target_mean
         if args.with_stddev:
-            cvp = CoVariancePredictor(z=z, chol_km=t(art.chol_km),
-                                      r_mat=t(art.r_mat))
             variances = predict_variances(
                 kernel, cvp, X, sigma2, predictive=args.predictive
             ).cpu().numpy()
-            lines = [f"{mean:f},{math.sqrt(max(var, 0.0)):f}\n"
-                     for mean, var in zip(means, variances)]
         else:
-            lines = [f"{mean:f}\n" for mean in means]
-    sys.stdout.write("".join(lines))
+            variances = None
+    _write_predictions(means, variances)
     return 0
+
+
+def _write_predictions(means, variances=None):
+    """One line a point: the mean, and the standard deviation where
+    ``variances`` are given."""
+    if variances is None:
+        lines = [f"{mean:f}\n" for mean in means]
+    else:
+        lines = [f"{mean:f},{math.sqrt(max(var, 0.0)):f}\n"
+                 for mean, var in zip(means, variances)]
+    sys.stdout.write("".join(lines))
+
+
+#: test rows an exact-GP prediction takes at a time: K(X*, X) of a block at
+#: the 20,000-row cap is 1.3 GB in f64
+EXACT_SERVE_ROWS = 8192
+
+
+@torch.no_grad()
+def serve_exact(kernel, art, X, *, with_stddev=False, predictive=False):
+    """(means, variances or None) of an exact-GP artifact at X (on the
+    device), EXACT_SERVE_ROWS rows at a time: the training inputs are the
+    artifact's inducing set, alpha its coeffs, chol(K + sigma2 I) its
+    chol_km (``models.exact``)."""
+    from .models.exact import (
+        ExactModel,
+        ExactTrained,
+        predict_means_exact,
+        predict_variances_exact,
+    )
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=F64, device=X.device)
+
+    tr = ExactTrained(
+        model=ExactModel(z=t(art.inducing), sigma2=t(art.sigma2),
+                         chol_a=t(art.chol_km)),
+        y=t(np.zeros(art.inducing.shape[0])), alpha=t(art.coeffs),
+        l=t(0.0))
+    blocks = [X[i:i + EXACT_SERVE_ROWS]
+              for i in range(0, X.shape[0], EXACT_SERVE_ROWS)]
+    means = torch.cat([predict_means_exact(kernel, tr, b) for b in blocks])
+    variances = None
+    if with_stddev:
+        variances = torch.cat([
+            predict_variances_exact(kernel, tr, b, predictive=predictive)
+            for b in blocks]).cpu().numpy()
+    return means.cpu().numpy(), variances
 
 
 def main(argv=None) -> int:

@@ -1,7 +1,8 @@
 """Carry trained weights from the JAX package (or its artifacts) to tensors.
 
 Both entries return ``(kernel module, z, sigma2)`` on an explicit device and
-dtype, ready for the streaming functions of ``gpr_tpu_torch.models``.
+dtype, ready for the streaming functions of ``gpr_tpu_torch.models``;
+``warp_from_jax`` carries a warped GP's warp parameters.
 Every family of the JAX package is ported: the base families
 (``kernels.FAMILIES``) and every structural name (``sum(...)``,
 ``prod(...)``, ``cols(...)``, ``task(T,R)``), whose fields have dotted
@@ -17,6 +18,7 @@ import torch
 
 from .io.checkpoint import ModelArtifact
 from .kernels import resolve_family
+from .models.warped import WARP_FIELDS, WarpParams
 
 
 def _dotted(params: Mapping, prefix: str = "") -> dict:
@@ -65,3 +67,13 @@ def params_from_artifact(art: ModelArtifact, *, device, dtype):
     return from_jax_params(art.kernel_params, art.inducing, art.sigma2,
                            device=device, dtype=dtype,
                            family=art.family_name)
+
+
+def warp_from_jax(wp, *, device, dtype):
+    """The port's ``WarpParams`` from JAX's: its ``log_a``, ``log_b`` and
+    ``c`` leaves as attributes (a JAX ``WarpParams``) or by name (a
+    mapping of arrays)."""
+    leaves = [wp[f] if isinstance(wp, Mapping) else getattr(wp, f)
+              for f in WARP_FIELDS]
+    return WarpParams(*(np.array(v) for v in leaves), device=device,
+                      dtype=dtype)

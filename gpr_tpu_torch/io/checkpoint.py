@@ -11,6 +11,14 @@ names that JAX's nested params flatten to (``terms.0.log_ell``,
 ``terms.1.terms.0.W``, ``terms.0.d`` for an se_fat term).  ``artifact_from_trained`` takes tensors
 to the host; ``gpr_tpu_torch.convert.params_from_artifact`` turns an
 artifact back into tensors.
+
+The extras of the Gaussian-likelihood extensions are the JAX package's,
+written and read as they are: ``student_t`` (nu) and ``t_scale`` (the t
+scale; the artifact's sigma2 is the moment-matched noise variance),
+``pitc_block``, ``warp_log_a``/``warp_log_b``/``warp_c``
+(:func:`warp_extras`; ``convert.warp_from_jax`` reads them back), and
+``exact``, whose artifact holds the training inputs as its inducing set,
+alpha as its coeffs and chol(K + sigma2 I) as both chol_km and r_mat.
 """
 
 from __future__ import annotations
@@ -60,6 +68,25 @@ def _params_to_arrays(params: dict) -> tuple[dict, dict]:
     return arrays, static
 
 
+def _host(t):
+    return torch.as_tensor(t).detach().cpu().numpy()
+
+
+def kernel_params_of(kernel) -> dict:
+    """An artifact's ``kernel_params`` of a kernel module: its static fields
+    and its hyper fields on the host (None where an option is off)."""
+    return {**static_fields(kernel),
+            **{name: None if t is None else _host(t)
+               for name, t in hyper_fields(kernel).items()}}
+
+
+def warp_extras(wp) -> dict:
+    """A warped model's artifact extras, as the JAX package writes them:
+    ``warp_log_a``, ``warp_log_b`` and ``warp_c``."""
+    return {f"warp_{name}": _host(getattr(wp, name))
+            for name in ("log_a", "log_b", "c")}
+
+
 def artifact_from_trained(family, trained, *, target_mean=0.0,
                           input_means=None, input_stddevs=None,
                           kernel_params) -> ModelArtifact:
@@ -67,23 +94,16 @@ def artifact_from_trained(family, trained, *, target_mean=0.0,
     module ``kernel_params``, e.g. a ``TrainResult``'s ``trained`` and
     ``kernel_params``; tensors go to the host."""
 
-    def host(t):
-        return torch.as_tensor(t).detach().cpu().numpy()
-
     model = trained.model
     z = model.inducing.z
     d = z.shape[1] if z.ndim == 2 else 1
     return ModelArtifact(
         family_name=family.name,
-        kernel_params={
-            **static_fields(kernel_params),
-            **{name: None if t is None else host(t)
-               for name, t in hyper_fields(kernel_params).items()},
-        },
-        inducing=host(z),
-        coeffs=host(trained.coeffs),
-        chol_km=host(model.inducing.chol_km),
-        r_mat=host(model.r_mat),
+        kernel_params=kernel_params_of(kernel_params),
+        inducing=_host(z),
+        coeffs=_host(trained.coeffs),
+        chol_km=_host(model.inducing.chol_km),
+        r_mat=_host(model.r_mat),
         sigma2=float(model.sigma2),
         target_mean=float(target_mean),
         input_means=np.asarray(input_means if input_means is not None

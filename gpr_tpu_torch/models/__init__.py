@@ -1,3 +1,17 @@
+from .exact import (
+    ExactModel,
+    ExactTrained,
+    calc_exact,
+    covariances_exact,
+    exact_trained,
+    fit_exact,
+    log_evidence_exact,
+    loo_log_likelihood,
+    loo_objective_exact,
+    loo_posterior,
+    predict_means_exact,
+    predict_variances_exact,
+)
 from .fitc import (
     InducingState,
     ModelState,
@@ -18,6 +32,16 @@ from .loo import (
     loo_objective as loo_objective_fitc,
     loo_posterior as loo_posterior_fitc,
 )
+from .multitask import batched_log_evidence, batched_value_and_grad, multi_start
+from .online import (
+    OnlineState,
+    online_downdate,
+    online_init,
+    online_log_evidence,
+    online_predictors,
+    online_update,
+)
+from .pitc import pitc_coeffs, pitc_log_evidence, pitc_stream_stats
 from .predict import (
     CoVariancePredictor,
     MeanPredictor,
@@ -33,6 +57,15 @@ from .predict import (
     predict_variances,
     variances_model_inputs,
 )
+from .robust import (
+    fit_t,
+    t_elbo,
+    t_em_sweeps,
+    t_lambda_update,
+    t_posterior_moments,
+    t_predict,
+    t_select_nu,
+)
 from .sample import (CovSampler, Sampler, cov_sample, cov_sampler,
                      sample, sample_fic_blocked, sampler)
 from .stats import ClassifyStats, Stats, calc_classify_stats, calc_stats
@@ -45,6 +78,20 @@ from .streaming import (
     streaming_coeffs,
     streaming_log_evidence,
     streaming_trained,
+)
+from .warped import (
+    WarpParams,
+    default_warp_params,
+    fit_warped,
+    make_warped_pack,
+    warp,
+    warp_deriv,
+    warp_inv,
+    warped_log_evidence,
+    warped_predict_mean,
+    warped_predict_median,
+    warped_predict_moments,
+    warped_predict_quantile,
 )
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -26,8 +26,6 @@ def cholesky_upper(a: torch.Tensor, jitter: float | None = None) -> torch.Tensor
     not positive definite gives NaN, as ``jnp.linalg.cholesky`` does, rather
     than an exception (so the call needs no device synchronisation).
     """
-    n = a.shape[-1]
-    eye = torch.eye(n, dtype=a.dtype, device=a.device)
     if jitter is None:
         jitter = config.cholesky_jitter
         if a.dtype == torch.float32:
@@ -36,7 +34,12 @@ def cholesky_upper(a: torch.Tensor, jitter: float | None = None) -> torch.Tensor
             )
             jitter = torch.clamp(1e-5 * diag_scale, min=jitter)
             jitter = jitter[..., None, None]
-    u, info = torch.linalg.cholesky_ex(a + jitter * eye, upper=True)
+    if not (isinstance(jitter, (int, float)) and jitter == 0):
+        # (no identity for a zero jitter: at the exact GP's n = 20,000 in
+        # f64 each n x n temporary is 3.2 GB)
+        a = a + jitter * torch.eye(a.shape[-1], dtype=a.dtype,
+                                   device=a.device)
+    u, info = torch.linalg.cholesky_ex(a, upper=True)
     failed = (info != 0)[..., None, None]
     return torch.where(failed, torch.full_like(u, float("nan")), u)
 

@@ -6,6 +6,7 @@ from .lbfgs_device import (
     fit_packed_objective,
     fit_restarts,
     minimize_lbfgs_device,
+    value_and_grad,
 )
 from .pack import HyperPack, make_pack
 from .polish import PolishReport, evaluate_f64, polish

@@ -226,6 +226,22 @@ def minimize_lbfgs_device(
     return st
 
 
+def value_and_grad(f):
+    """``fg_of(x, *data) -> (f, grad)`` for :func:`fit_packed_objective`
+    from a scalar objective ``f(x, *data)``: the counterpart of
+    ``jax.value_and_grad(f)``.  Autograd runs inside whatever the caller's
+    grad mode is; the value comes back detached."""
+
+    def fg_of(x, *data):
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            val = f(x, *data)
+            (g,) = torch.autograd.grad(val, x)
+        return val.detach(), g
+
+    return fg_of
+
+
 def _make_fg(pack, variational, streaming_block_size, scale, log_prior,
              objective="evidence"):
     """(x, X, y) -> (f, grad) of the packed, scaled negative objective (+
@@ -246,29 +262,23 @@ def _make_fg(pack, variational, streaming_block_size, scale, log_prior,
             "(models/loo.py); drop streaming_block_size"
         )
 
-    def fg_of(x, X, y):
-        x = x.detach().requires_grad_(True)
-        with torch.enable_grad():
-            kernel, z, sigma2 = pack.unpack(x)
-            if objective == "loo":
-                l = loo_objective(kernel, z, sigma2, X, y,
-                                  factorization="chol")
-            elif streaming_block_size is not None:
-                l = streaming_log_evidence(kernel, z, sigma2, X, y,
-                                           variational=variational,
-                                           block_size=streaming_block_size)
-            else:
-                model = calc_model(kernel, X, z, sigma2,
-                                   variational=variational,
-                                   factorization="chol")
-                l = calc_trained(model, y).l
-            if log_prior is not None:
-                l = l + log_prior(kernel, z, sigma2)
-            f = -l * scale
-            (g,) = torch.autograd.grad(f, x)
-        return f.detach(), g
+    def f(x, X, y):
+        kernel, z, sigma2 = pack.unpack(x)
+        if objective == "loo":
+            l = loo_objective(kernel, z, sigma2, X, y, factorization="chol")
+        elif streaming_block_size is not None:
+            l = streaming_log_evidence(kernel, z, sigma2, X, y,
+                                       variational=variational,
+                                       block_size=streaming_block_size)
+        else:
+            model = calc_model(kernel, X, z, sigma2, variational=variational,
+                               factorization="chol")
+            l = calc_trained(model, y).l
+        if log_prior is not None:
+            l = l + log_prior(kernel, z, sigma2)
+        return -l * scale
 
-    return fg_of
+    return value_and_grad(f)
 
 
 def _chunk_loop(chunk, st, X, y, max_iter, epsabs, f_noise,

@@ -119,9 +119,15 @@ def _train(pkg, path, flags, csv):
 
 
 def _assert_same_artifact(got, want, rtol=1e-8):
-    a, _ = jckpt.load_model(str(got))
-    b, _ = jckpt.load_model(str(want))
+    a, a_extra = jckpt.load_model(str(got))
+    b, b_extra = jckpt.load_model(str(want))
     assert a.family_name == b.family_name
+    # the extras by name, each of the same dtype and value
+    assert sorted(a_extra) == sorted(b_extra)
+    for name in a_extra:
+        assert a_extra[name].dtype == b_extra[name].dtype, name
+        np.testing.assert_allclose(a_extra[name], b_extra[name], rtol=rtol,
+                                   err_msg=name)
     # by field name; a combinator's by the dotted names of its terms'
     fields = [{**arrays, **static} for arrays, static in (
         jckpt._params_to_arrays(art.kernel_params) for art in (a, b))]
@@ -154,6 +160,43 @@ def test_train_matches_jax(case, data, tmp_path):
     cmd = ["-cmd", "test", "-model", str(tmp_path / "jax.npz"),
            "-with-stddev"]
     assert run("torch", cmd, test_csv) == run("jax", cmd, test_csv)
+
+
+EXT = ["-kernel", "se_iso", "-n-inducing", "6", "-trainer", "device"]
+EXTENSIONS = {
+    "student-t": EXT + ["-student-t", "4"],
+    "warp": EXT + ["-warp", "2"],
+    "pitc": EXT + ["-pitc-block", "16"],
+    "warp-se_fat-streaming": SE_FAT + ["-trainer", "device", "-warp", "2",
+                                       "-block-size", "64"],
+    "exact": ["-exact", "-kernel", "se_iso"],
+    "exact-loo": ["-exact", "-loo", "-kernel", "se_iso"],
+    "exact-se_fat-restarts": ["-exact", "-dim-red", "2", "-restarts", "2"],
+}
+# -student-t runs five EM rounds of at least 5 L-BFGS iterations each (109
+# evaluations here, the same count in both packages): the two packages'
+# roundoff grows to ~4e-8 relative over them
+EXTENSION_RTOL = {"student-t": 1e-6}
+
+
+@pytest.mark.parametrize("case", sorted(EXTENSIONS))
+def test_extension_matches_jax(case, data, tmp_path):
+    """-student-t, -warp, -pitc-block, -exact and -exact -loo: each CLI
+    trains the same artifact (1e-8 relative, the mode's extras included;
+    see EXTENSION_RTOL) with the same stdout and stderr, and either
+    artifact serves the same text from both CLIs."""
+    csv, test_csv = data
+    flags = EXTENSIONS[case] + BASE
+    jout = _train("jax", tmp_path / "jax.npz", flags, csv)
+    tout = _train("torch", tmp_path / "torch.npz", flags, csv)
+    assert tout == jout
+    _assert_same_artifact(tmp_path / "torch.npz", tmp_path / "jax.npz",
+                          rtol=EXTENSION_RTOL.get(case, 1e-8))
+    for model in ("jax.npz", "torch.npz"):
+        for serve in ([], ["-with-stddev"]):
+            cmd = ["-cmd", "test", "-model", str(tmp_path / model), *serve]
+            got = run("torch", cmd, test_csv)
+            assert got[0] == 0 and got == run("jax", cmd, test_csv)
 
 
 def test_cosine_matches_jax_from_its_draw(data, tmp_path, monkeypatch):
@@ -328,6 +371,14 @@ BAD = {
     "tasks with kmeans": (["-tasks", "2", "-inducing-init", "kmeans"],
                           "".join(f"{i * 0.1:.1f},{i % 2},{i * 0.2:.1f}\n"
                                   for i in range(20))),
+    "student-t nu of two": (["-student-t", "2", "-trainer", "device"],
+                            None),
+    "student-t with checkpoint": (["-student-t", "4", "-trainer", "device",
+                                   "-checkpoint", "c"], None),
+    "pitc with polish": (["-pitc-block", "8", "-trainer", "device",
+                          "-polish", "10"], None),
+    "exact with polish": (["-exact", "-polish", "10"], None),
+    "exact with multiscale": (["-exact", "-multiscale"], None),
     "one column": ([], "1.0\n2.0\n"),
     "ragged rows": ([], "1.0,2.0\n1.0\n"),
     "not a number": ([], "1.0,2.0\n1.0,x\n"),
@@ -355,11 +406,7 @@ def test_test_messages(data, tmp_path):
 
 
 NOT_PORTED = {
-    "-exact": (["-exact"], 9),
     "-cg": (["-exact", "-cg"], 10),
-    "-pitc-block": (["-pitc-block", "8", "-trainer", "device"], 9),
-    "-warp": (["-warp", "2", "-trainer", "device"], 9),
-    "-student-t": (["-student-t", "4", "-trainer", "device"], 9),
     "-classify": (["-classify", "-trainer", "device"], 11),
     "-poisson": (["-poisson", "-trainer", "device"], 11),
     "-binomial": (["-binomial", "-trainer", "device"], 11),

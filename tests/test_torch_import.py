@@ -7,7 +7,8 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent / "gpr_tpu_torch"
 # modules of the training leg, the roofline path, the Quick-start path, the
-# command-line path and the base kernel families, named so that a move or a
+# command-line path, the base kernel families and the Gaussian-likelihood
+# extensions, named so that a move or a
 # rename cannot drop them from the scan unnoticed
 NEWER = ("models/fitc.py", "optim/lbfgs.py", "optim/train.py",
          "optim/polish.py", "ops/gemm_chain.py", "datasets.py",
@@ -16,7 +17,9 @@ NEWER = ("models/fitc.py", "optim/lbfgs.py", "optim/train.py",
          "io/native.py", "kernels/se_fat.py", "kernels/se_ard.py",
          "kernels/matern.py", "kernels/rq.py", "kernels/periodic.py",
          "kernels/cosine.py", "kernels/lin_one.py", "kernels/lin_ard.py",
-         "kernels/const.py", "numerics/block_diag.py")
+         "kernels/const.py", "numerics/block_diag.py", "models/robust.py",
+         "models/warped.py", "models/pitc.py", "models/online.py",
+         "models/exact.py", "models/multitask.py")
 
 
 def _jax_imports(path):
@@ -66,6 +69,9 @@ def test_import_loads_no_jax():
         "import gpr_tpu_torch.kernels.cosine, gpr_tpu_torch.kernels.const\n"
         "import gpr_tpu_torch.kernels.lin_one, gpr_tpu_torch.kernels.lin_ard\n"
         "from gpr_tpu_torch.numerics import block_diag, tsqr_r\n"
+        "from gpr_tpu_torch.models import (fit_t, fit_warped, "
+        "pitc_log_evidence, online_update, fit_exact, multi_start)\n"
+        "from gpr_tpu_torch.convert import warp_from_jax\n"
         "assert gpr_tpu_torch.io.native.get_lib() is not None\n"
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
