@@ -4,7 +4,8 @@ README's Quick-start path, bench.py's flagship se_fat leg, the default
 streaming route, the base kernel families, the composite families (the
 combinators, the ICM task kernel, the spectral mixture), per-row sigma2,
 the Gaussian-likelihood extensions (warped, online, PITC, Student-t, exact,
-batched tasks) and the command-line trainer/predictor, once on one NVIDIA
+batched tasks), the Laplace likelihood families (logit, Poisson, binomial,
+NB2, ordinal) and the command-line trainer/predictor, once on one NVIDIA
 GPU.
 
     python3 chip_smoke.py
@@ -187,7 +188,26 @@ Phases, each printed on its own line:
    ``batched_value_and_grad``: streaming, 4 launches each of #1 and #3,
    each task against its own f32 loop and f64 twin, and dense (vmap) at
    100,000 rows against each task's f64 twin.  Times: median of 3.
-17. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
+17. laplace -- the Laplace likelihood families (no kernel; none may
+   launch) on the same draw, SE-iso at bench's hypers, jitter 1e-6, 15
+   Newton steps: bench.py's classify leg (labels sign(y) + (y == 0)),
+   value and gradient (log_ell, log_sf2, z) dense and streaming at block
+   8,192 over the 1M rows, each in f32 against its f64 twin on the card
+   (the section 2 bounds: evidence 2e-5, each gradient group 1e-3),
+   timed, with its bound (``classify_bound``) and peak memory; Poisson,
+   binomial (1..5 trials) and NB2 (r = 2, its gradient included) counts
+   drawn from default_rng(5) over the latent sin(x0 + x1), and bench's
+   ordinal leg (K = 4, labels digitize(x0 + x1, [-1, 0, 1]), cut_raw
+   [-1, 0, 0] and its gradient), dense at 1M and streaming at 100,000
+   rows, the same way, but for what f32 cannot resolve
+   (LAPLACE_F32_NOT_HELD), held in f64 card vs CPU over 100,000 rows
+   (1e-8); the IFT against the unrolled gradient in f64 at 100,000 rows,
+   dense and streaming, logit and ordinal (evidence 1e-9, groups 1e-6);
+   fit_classify, fit_poisson and fit_ordinal, 5 iterations in f32 at
+   100,000 rows, whose mean NLL must fall; classify_predict against
+   stream_classify_predict at 100,000 points (probabilities in (0, 1),
+   within 1e-5).
+18. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
    bench's draw (the first 200,000 rows of X with the fit phase's targets;
    rows 200,000-299,999 to test on), se_fat with -n-inducing 300 -dim-red 8
    -log-het-sked -5 -multiscale -inducing-init first -seed 0: (a) the host
@@ -208,7 +228,14 @@ Phases, each printed on its own line:
    -student-t 4, and -exact and -exact -loo on the first 20,000 rows, each
    served by -cmd test -with-stddev as in (c) (a warped model's means are
    the library's warped_predict_moments, an exact one's its dense
-   posterior).  Each
+   posterior); (h) the Laplace modes -classify, -classify -block-size
+   16384, -poisson, -binomial, -negbin 2 and -ordinal (-kernel se_iso
+   -n-inducing 300 -trainer device -max-iter 2) on the same rows with the
+   laplace phase's targets (-classify: yf > 0 of the fit phase's), the six
+   trainings side by side on the card, then their -cmd test -with-stddev
+   side by side: 100,000 finite lines each, every line but its stddev
+   column equal, as printed, to the library's latent posterior on the
+   artifact through the model's link (``library_laplace``).  Each
    command's wall time, iterations and evaluations (the device trainer
    prints them), the log evidence (recomputed here in f64) and SMSE, which
    CSV parser ran, and the wall time of -cmd test on one row (what every
@@ -256,7 +283,7 @@ from gpr_tpu_torch.kernels import (
     sm_init_from_data,
 )
 from gpr_tpu_torch.kernels.base import hyper_fields, hyper_leaves, static_fields
-from gpr_tpu_torch.models import streaming
+from gpr_tpu_torch.models import ift, streaming
 from gpr_tpu_torch.models.fitc import calc_inducing
 from gpr_tpu_torch.numerics.linalg import (
     cholesky_upper,
@@ -288,6 +315,14 @@ from gpr_tpu_torch.models import (
     predict_variances,
     sample_fic_blocked,
 )
+from gpr_tpu_torch.models.binomial import binomial_log_evidence
+from gpr_tpu_torch.models.classify import (
+    classify_log_evidence,
+    classify_predict,
+    fit_classify,
+    mackay_squash,
+)
+from gpr_tpu_torch.models.classify_stream import stream_classify_predict
 from gpr_tpu_torch.models.exact import (
     calc_exact,
     exact_trained,
@@ -297,6 +332,13 @@ from gpr_tpu_torch.models.exact import (
     predict_variances_exact,
 )
 from gpr_tpu_torch.models.multitask import batched_value_and_grad
+from gpr_tpu_torch.models.negbin import negbin_log_evidence
+from gpr_tpu_torch.models.ordinal import (
+    cell_probs,
+    fit_ordinal,
+    ordinal_log_evidence,
+)
+from gpr_tpu_torch.models.poisson import fit_poisson, poisson_log_evidence
 from gpr_tpu_torch.models.online import (
     online_downdate,
     online_init,
@@ -2588,6 +2630,344 @@ def gaussian_ext_phase(dev, card: str, data) -> None:
     log(f"gaussian_ext phase: {time.perf_counter() - t0:.1f} s ({card})")
 
 
+# -- laplace: the Laplace likelihood families (bench.py:565-585, 757-775)
+LAPLACE_STEPS = 15  # bench's classify and ordinal legs
+LAPLACE_ROWS = 100_000  # streaming counts and ordinal, IFT vs unroll, fits
+LAPLACE_FIT_ITERS = 5
+LAPLACE_SEED = 5  # the counts' numpy draw
+NB_R = 2.0  # the NB2 dispersion of the draw and of the evaluation
+ORD_EDGES = (-1.0, 0.0, 1.0)  # bench's ordinal labels: K = 4
+ORD_CUT_RAW = (-1.0, 0.0, 0.0)
+# What f32 cannot resolve, by leg: printed against the f64 twin, held in
+# f64 card vs CPU over LAPLACE_ROWS (as F32_NOT_HELD in composites).  The
+# dense Poisson at 1M rows: its log_ell and z gradients (1.6e-3 and
+# 1.4e-2 of the f64 twin) sum autograd's f32 products over all 10^6 rows
+# in one reduction (V's and K's backward), with Poisson's curvature W up to
+# e^3 against the logit's 1/4; the streaming legs, whose products sum
+# 8,192-row blocks, hold the bounds.
+LAPLACE_F32_NOT_HELD = {"poisson dense": ("log_ell", "z")}
+
+
+def laplace_data(dev, X32, y32):
+    """bench's classify labels sign(y) + (y == 0), then from
+    default_rng(LAPLACE_SEED) over the latent sin(x0 + x1): Poisson counts
+    at rate exp(latent), binomial successes of 1..5 trials at
+    sigmoid(latent), NB2 counts of mean exp(latent) and dispersion NB_R;
+    bench's ordinal labels digitize(x0 + x1, ORD_EDGES).  On the card, f32
+    (the ordinal labels int64)."""
+    yc = torch.sign(y32) + (y32 == 0).to(torch.float32)
+    s = (X32[:, 0] + X32[:, 1]).cpu().numpy().astype(np.float64)
+    latent = np.sin(s)
+    rng = np.random.default_rng(LAPLACE_SEED)
+    counts = rng.poisson(np.exp(latent))
+    trials = rng.integers(1, 6, N)
+    succ = rng.binomial(trials, 1.0 / (1.0 + np.exp(-latent)))
+    nb = rng.negative_binomial(NB_R, NB_R / (NB_R + np.exp(latent)))
+    yo = np.digitize(s, ORD_EDGES)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return {"classify": yc, "poisson": f32(counts),
+            "binomial": (f32(succ), f32(trials)), "negbin": f32(nb),
+            "ordinal": torch.as_tensor(yo, dtype=torch.int64, device=dev)}
+
+
+def laplace_model(name, labels, steps=LAPLACE_STEPS):
+    """(evidence fn(kernel, z, X, extra, block_size, grad_impl), the start
+    of the likelihood's leaf or None) of a Laplace model on ``labels``
+    (cast to X's dtype where float)."""
+    def cast(t, X):
+        return t.to(X.dtype) if t.is_floating_point() else t
+
+    if name == "classify":
+        return (lambda k, z, X, e, bs, gi: classify_log_evidence(
+            k, z, X, cast(labels, X), newton_iters=steps, jitter=JITTER,
+            block_size=bs, grad_impl=gi)), None
+    if name == "poisson":
+        return (lambda k, z, X, e, bs, gi: poisson_log_evidence(
+            k, z, X, cast(labels, X), newton_iters=steps, jitter=JITTER,
+            block_size=bs, grad_impl=gi)), None
+    if name == "binomial":
+        succ, trials = labels
+        return (lambda k, z, X, e, bs, gi: binomial_log_evidence(
+            k, z, X, cast(succ, X), cast(trials, X), newton_iters=steps,
+            jitter=JITTER, block_size=bs, grad_impl=gi)), None
+    if name == "negbin":
+        return (lambda k, z, X, e, bs, gi: negbin_log_evidence(
+            k, z, X, cast(labels, X), e, newton_iters=steps, jitter=JITTER,
+            block_size=bs, grad_impl=gi)), NB_R
+    return (lambda k, z, X, e, bs, gi: ordinal_log_evidence(
+        k, z, X, labels, e, newton_iters=steps, jitter=JITTER,
+        block_size=bs, grad_impl=gi)), ORD_CUT_RAW
+
+
+def laplace_rows(labels, rows):
+    if isinstance(labels, tuple):
+        return tuple(t[:rows] for t in labels)
+    return labels[:rows]
+
+
+def laplace_value_and_grad(name, labels, X, Z, block=None, grad_impl="ift"):
+    """The model's evidence at bench's SE-iso hypers (jitter 1e-6) and its
+    gradient groups (log_ell, log_sf2, z and the likelihood's leaf), in X's
+    dtype on X's device."""
+    fn, e0 = laplace_model(name, labels)
+    dev, dt = X.device, X.dtype
+    k = SeIso(LOG_ELL, LOG_SF2, device=dev, dtype=dt)
+    z = leaf(Z, dt, dev)
+    e = leaf(e0, dt, dev) if e0 is not None else None
+    ev = fn(k, z, X, e, block, grad_impl)
+    ev, grads = grads_of(ev, k, z, *([e] if e is not None else []))
+    return ev, grads
+
+
+def laplace_names(name):
+    extra = {"negbin": ("r",), "ordinal": ("cut_raw",)}.get(name, ())
+    return ("log_ell", "log_sf2", "z") + extra
+
+
+def classify_bound(n, d, m, steps) -> dict:
+    """Bench's classify leg, value and gradient, dense: per Newton step the
+    Woodbury Gram (2 n m^2), one more for the evidence's factor and one for
+    the IFT backward's, V = Knm U^-1 and its two backward products
+    (2 n m^2 each), Knm and its pullback (~4 n m d); X, y and z read, the
+    evidence and the gradients written."""
+    flops = (steps + 5) * 2.0 * n * m * m + 4.0 * n * m * d
+    return bound(flops, 4.0 * (n * (d + 1) + 2 * m * d + 2))
+
+
+def laplace_time(tag, fn, dev, card, reps=5, note="") -> float:
+    """Median of ``reps`` after a warm-up, the peak memory above what was
+    allocated before, the SM clock and the power draw."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    sampler = clock_log()
+    try:
+        t0 = time.time()
+        ms = median_ms(fn, reps=reps)
+        t1 = time.time()
+    finally:
+        samples = read_clock_log(sampler)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    log(f"time laplace {tag}: {ms:.3f} ms (median of {reps}){note}; peak "
+        f"memory {peak / 2**30:.2f} GiB above the data; "
+        f"{clock_window(samples, t0, t1)} ({card})")
+    return ms
+
+
+def laplace_f64_cpu(name, labels, X32, Z, block, groups) -> str:
+    """What f32 cannot resolve, held in f64 card vs CPU over LAPLACE_ROWS:
+    the evidence within 1e-8 relative and the named groups (every group
+    where ``groups`` is None) within 1e-8 (2-norm)."""
+    rows = laplace_rows(labels, LAPLACE_ROWS)
+    X = X32[:LAPLACE_ROWS].double()
+    card = laplace_value_and_grad(name, rows, X, Z, block)
+    cpu_rows = (tuple(t.cpu() for t in rows) if isinstance(rows, tuple)
+                else rows.cpu())
+    cpu = laplace_value_and_grad(name, cpu_rows, X.cpu(), Z, block)
+    rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    check(f"laplace {name} f64 card vs cpu evidence", rel <= 1e-8,
+          f"rel {rel:.3e}")
+    errs = [f"evidence {rel:.2e}"]
+    for g_name, g, w in zip(laplace_names(name), card[1], cpu[1]):
+        err = rel_norm(g.cpu(), w)
+        if groups is None or g_name in groups:
+            check(f"laplace {name} f64 card vs cpu {g_name}", err <= 1e-8,
+                  f"rel {err:.3e}")
+        errs.append(f"{g_name} {err:.2e}")
+    return ", ".join(errs)
+
+
+def laplace_vs_twin(tag, name, labels, X32, Z, block, dev, card,
+                    reps=5) -> None:
+    """One model in f32 (no kernel launched) against its f64 twin on the
+    card: the section 2 bounds but for LAPLACE_F32_NOT_HELD, which is held
+    in f64 card vs CPU; then timed.  Returns the twin's (evidence,
+    gradients)."""
+    names = laplace_names(name)
+    (ev, grads), _ = counted(f"laplace {tag}", lambda: laplace_value_and_grad(
+        name, labels, X32, Z, block), ())
+    check(f"laplace {tag} launches", all(
+        w.launches == 0 for w in WRAPPERS.values()), "a kernel launched")
+    twin = laplace_value_and_grad(name, labels, X32.double(), Z, block)
+    rel = (ev - twin[0]) / abs(twin[0])
+    loose = LAPLACE_F32_NOT_HELD.get(tag, ())
+    errs = []
+    if loose is not None:
+        check(f"laplace {tag} evidence", abs(rel) <= 2e-5, f"rel {rel:.3e}")
+    for g_name, g, w in zip(names, grads, twin[1]):
+        err = rel_norm(g, w)
+        if loose is not None and g_name not in loose:
+            check(f"laplace {tag} grad {g_name}", err <= 1e-3
+                  and bool(torch.isfinite(g).all()), f"rel {err:.3e}")
+        errs.append(f"{g_name} {err:.2e}")
+    log(f"laplace {tag} f32 vs the f64 twin {twin[0]:.3f}: evidence rel "
+        f"{rel:+.2e}; grads {', '.join(errs)} ({card})")
+    if tag in LAPLACE_F32_NOT_HELD:
+        log(f"laplace {tag} not held in f32 ({loose or 'whole'}); f64 card "
+            f"vs cpu over {LAPLACE_ROWS} rows: "
+            f"{laplace_f64_cpu(name, labels, X32, Z, block, loose)}")
+    laplace_time(f"{tag} value+grad f32", lambda: laplace_value_and_grad(
+        name, labels, X32, Z, block), dev, card, reps)
+    return twin
+
+
+def laplace_ablation(tag, name, labels, X32, Z, twin, card) -> None:
+    """For information, not held: a dense leg's f32 value and gradient with
+    one design choice of ``models/ift.py`` undone, against its f64 twin:
+    the Newton steps and the IFT backward's solve in f32
+    (``ift.MODE_DTYPE``, the JAX package's choice) and each product
+    summed over the rows as one product (``ift.REDUCE_ROWS``)."""
+    for what, attr, value in (
+            ("Newton steps and IFT solve in f32", "MODE_DTYPE",
+             torch.float32),
+            ("one product over all rows", "REDUCE_ROWS", 1 << 62)):
+        kept = getattr(ift, attr)
+        setattr(ift, attr, value)
+        try:
+            ev, grads = laplace_value_and_grad(name, labels, X32, Z, None)
+        finally:
+            setattr(ift, attr, kept)
+        errs = ", ".join(f"{g_name} {rel_norm(g, w):.2e}" for g_name, g, w
+                         in zip(laplace_names(name), grads, twin[1]))
+        log(f"laplace ablation {tag}, {what}: evidence rel "
+            f"{(ev - twin[0]) / abs(twin[0]):+.2e}; grads {errs} ({card})")
+
+
+def laplace_ift_vs_unroll(dev, card, X32, Z, labels) -> None:
+    """The two gradient routes in f64 at LAPLACE_ROWS rows, dense and
+    streaming: the evidence within 1e-9 and each gradient group within
+    1e-6 (JAX's tests/test_ift.py bound)."""
+    X = X32[:LAPLACE_ROWS].double()
+    for name in ("classify", "ordinal"):
+        rows = laplace_rows(labels[name], LAPLACE_ROWS)
+        for block in (None, BLOCK):
+            ift = laplace_value_and_grad(name, rows, X, Z, block, "ift")
+            t0 = time.perf_counter()
+            unroll = laplace_value_and_grad(name, rows, X, Z, block,
+                                            "unroll")
+            secs = time.perf_counter() - t0
+            rel = abs(ift[0] - unroll[0]) / abs(unroll[0])
+            tag = f"laplace ift vs unroll {name} block={block}"
+            check(f"{tag} evidence", rel <= 1e-9, f"rel {rel:.3e}")
+            errs = []
+            for g_name, g, w in zip(laplace_names(name), ift[1], unroll[1]):
+                err = rel_norm(g, w)
+                check(f"{tag} {g_name}", err <= 1e-6, f"rel {err:.3e}")
+                errs.append(f"{g_name} {err:.2e}")
+            log(f"{tag} (f64, {LAPLACE_ROWS} rows): evidence {rel:.2e}; "
+                f"{', '.join(errs)}; unroll {secs:.2f} s ({card})")
+
+
+def laplace_fits(dev, card, X32, Z, labels) -> None:
+    """fit_classify (on the labels sign(yf) of the fit phase's targets:
+    bench's classify labels are noise), fit_poisson and fit_ordinal,
+    LAPLACE_FIT_ITERS iterations in f32 on the first LAPLACE_ROWS rows from
+    bench's hypers (z = Z): finite, and the mean NLL falls."""
+    X = X32[:LAPLACE_ROWS]
+    yf = bench_targets(dev, X32)[:LAPLACE_ROWS]
+    for name in ("classify", "poisson", "ordinal"):
+        rows = (torch.where(yf > 0, 1.0, -1.0) if name == "classify"
+                else laplace_rows(labels[name], LAPLACE_ROWS))
+        k = SeIso(LOG_ELL, LOG_SF2, device=dev, dtype=torch.float32)
+        pack = make_pack(k, torch.as_tensor(Z, device=dev), 1.0,
+                         learn_sigma2=False)
+        kw = dict(max_iter=LAPLACE_FIT_ITERS, newton_iters=LAPLACE_STEPS,
+                  jitter=JITTER, epsabs=1e-6)
+        t0 = time.perf_counter()
+        if name == "classify":
+            out = fit_classify(X, rows, pack, **kw)
+        elif name == "poisson":
+            out = fit_poisson(X, rows, pack, **kw)
+        else:
+            cut0 = torch.tensor(ORD_CUT_RAW, device=dev)
+            out = fit_ordinal(X, rows, pack, cut0, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = out[-1]
+        fn, e0 = laplace_model(name, rows)
+        with torch.no_grad():
+            e = (torch.tensor(e0, device=dev) if e0 is not None else None)
+            f0 = -float(fn(k, torch.as_tensor(Z, device=dev), X, e, None,
+                           "ift")) / LAPLACE_ROWS
+        f1 = float(st.f)
+        log(f"laplace fit_{name}: {int(st.n_iter)} iterations, "
+            f"{int(st.n_evals)} evaluations in {secs:.2f} s "
+            f"({1e3 * secs / max(int(st.n_evals), 1):.1f} ms each); mean "
+            f"NLL {f0:.6f} -> {f1:.6f} ({card})")
+        check(f"laplace fit_{name}", math.isfinite(f1) and f1 < f0,
+              f"mean NLL {f0} -> {f1}")
+
+
+def laplace_predict(dev, card, X32, Z, labels) -> None:
+    """classify_predict and stream_classify_predict (block 8,192) in f32:
+    trained on the first LAPLACE_ROWS rows, served at the next
+    LAPLACE_ROWS: probabilities in (0, 1), the two within 1e-5."""
+    X = X32[:LAPLACE_ROWS]
+    Xs = X32[LAPLACE_ROWS:2 * LAPLACE_ROWS]
+    yc = labels["classify"][:LAPLACE_ROWS]
+    k = SeIso(LOG_ELL, LOG_SF2, device=dev, dtype=torch.float32)
+    z = torch.as_tensor(Z, device=dev)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        dense = classify_predict(k, z, X, yc, Xs, newton_iters=LAPLACE_STEPS,
+                                 jitter=JITTER)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stream = stream_classify_predict(k, z, X, yc, Xs, block_size=BLOCK,
+                                         newton_iters=LAPLACE_STEPS,
+                                         jitter=JITTER)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    p, ps = dense[0], stream[0]
+    diff = float(torch.max(torch.abs(p - ps)))
+    inside = bool(((p > 0) & (p < 1) & (ps > 0) & (ps < 1)).all())
+    log(f"laplace predict: {Xs.shape[0]} points, dense {1e3 * (t1 - t0):.1f}"
+        f" ms, streaming {1e3 * (t2 - t1):.1f} ms; probabilities in (0, 1) "
+        f"{inside}, max |dense - streaming| {diff:.2e}, mean prob "
+        f"{float(p.mean()):.4f} ({card})")
+    check("laplace predict", inside and diff <= 1e-5,
+          f"in (0, 1) {inside}, diff {diff:.3e}")
+
+
+def laplace_phase(dev, card: str, data) -> None:
+    """Bench's classify leg (dense and streaming at 1M, f32 against the f64
+    twin, timed with its bound), the count families and ordinal (dense at
+    1M, streaming at LAPLACE_ROWS), IFT against unroll, three fits and the
+    classifier's predictions; no kernel launches on any of them."""
+    X32, y32, Z = data
+    t0 = time.perf_counter()
+    labels = laplace_data(dev, X32, y32)
+    b = classify_bound(N, D, M, LAPLACE_STEPS)
+    log(f"laplace bound: bench's classify leg {b['bound_ms']:.3f} ms "
+        f"({b['bound_by']}; {LAPLACE_STEPS} + 2 Woodbury Grams and V's "
+        f"three products of 2 n m^2)")
+    twin = laplace_vs_twin("classify dense", "classify", labels["classify"],
+                           X32, Z, None, dev, card)
+    laplace_ablation("classify dense", "classify", labels["classify"], X32,
+                     Z, twin, card)
+    laplace_vs_twin("classify stream", "classify", labels["classify"], X32,
+                    Z, BLOCK, dev, card, reps=EXT_REPS)
+    for name in ("poisson", "binomial", "negbin", "ordinal"):
+        twin = laplace_vs_twin(f"{name} dense", name, labels[name], X32, Z,
+                               None, dev, card, reps=EXT_REPS)
+        if name == "poisson":
+            laplace_ablation("poisson dense", name, labels[name], X32, Z,
+                             twin, card)
+        rows = laplace_rows(labels[name], LAPLACE_ROWS)
+        laplace_vs_twin(f"{name} stream {LAPLACE_ROWS}", name, rows,
+                        X32[:LAPLACE_ROWS], Z, BLOCK, dev, card,
+                        reps=EXT_REPS)
+    _, launches = counted("laplace fits and predictions", lambda: (
+        laplace_ift_vs_unroll(dev, card, X32, Z, labels),
+        laplace_fits(dev, card, X32, Z, labels),
+        laplace_predict(dev, card, X32, Z, labels)), ())
+    check("laplace launches", not any(launches.values()),
+          f"{launches}, want all 0")
+    log(f"laplace phase: {time.perf_counter() - t0:.1f} s ({card})")
+
+
 # -- cli: the command-line trainer/predictor in subprocesses
 CLI_TRAIN, CLI_TEST = 200_000, 100_000  # rows of bench's draw
 CLI_COMMON = ("-n-inducing", "300", "-dim-red", "8", "-log-het-sked", "-5",
@@ -2611,6 +2991,18 @@ CLI_EXT = {
                   "-max-iter", "5"),
     "exact": (*CLI_EXT_BASE, "-exact", "-max-iter", "2"),
     "exact-loo": (*CLI_EXT_BASE, "-exact", "-loo", "-max-iter", "2"),
+}
+# the Laplace modes: each trains on its CSV (the laplace phase's labels of
+# the training rows) and serves the test rows
+CLI_LAPLACE_BASE = (*CLI_EXT_BASE, "-n-inducing", "300", "-inducing-init",
+                    "first", "-trainer", "device", "-max-iter", "2")
+CLI_LAPLACE = {
+    "classify": ("classify", ("-classify",)),
+    "classify-stream": ("classify", ("-classify", "-block-size", "16384")),
+    "poisson": ("poisson", ("-poisson",)),
+    "binomial": ("binomial", ("-binomial",)),
+    "negbin": ("negbin", ("-negbin", "2")),
+    "ordinal": ("ordinal", ("-ordinal",)),
 }
 
 
@@ -2670,10 +3062,10 @@ def cli_report(tag, secs, err, model, dev, Xtr, ytr, card) -> None:
 def cli_ext_report(tag, secs, err, card) -> None:
     """Wall time, the last ``iter`` line's iterations and evaluations (-exact
     prints none), the ``result:`` line and, for -student-t, its weights
-    line."""
+    line (for -negbin, its learned dispersion)."""
     steps = re.findall(r"^iter +([0-9]+): f=.* evals=([0-9]+)", err, re.M)
     result = re.findall(r"^result: (.*)$", err, re.M)
-    weights = re.findall(r"^(student-t: .*)$", err, re.M)
+    weights = re.findall(r"^((?:student-t|negbin): .*)$", err, re.M)
     counts = (f"last M-step or run {steps[-1][0]} iterations, {steps[-1][1]}"
               f" evaluations" if steps else "no iteration lines (-exact "
               "prints none)")
@@ -2728,6 +3120,126 @@ def cli_serve(tmp, tag, model, csv, dev, card) -> None:
     check(f"cli test {tag}", vals.shape == (CLI_TEST, 2)
           and bool(np.isfinite(vals).all()) and same == CLI_TEST,
           f"shape {vals.shape}, {same} means equal")
+
+
+def laplace_csv_columns(name, labels, rows, yf) -> list:
+    """The target columns of a Laplace mode's training CSV over the first
+    ``rows`` rows: 0/1 labels yf > 0 of the fit phase's targets (classify),
+    else the laplace phase's labels (binomial: trials, then successes)."""
+    if name == "classify":
+        return [(yf[:rows] > 0).double().cpu().numpy()]
+    got = labels[name]
+    if name == "binomial":
+        return [got[1][:rows].cpu().numpy(), got[0][:rows].cpu().numpy()]
+    return [got[:rows].cpu().numpy()]
+
+
+def library_laplace(art, extra, kernel, z, xs) -> list[str]:
+    """What -cmd test prints before its standard-deviation column for a
+    Laplace artifact, from the library: the latent posterior of the
+    artifact's state through ``predict_means``/``predict_variances``, then
+    the model's own link (``mackay_squash``, the lognormal rate or count
+    mean, ``cell_probs``)."""
+    dev = xs.device
+    t = {k: torch.as_tensor(getattr(art, k), device=dev)
+         for k in ("coeffs", "chol_km", "r_mat")}
+    mu = predict_means(kernel, MeanPredictor(z=z, coeffs=t["coeffs"]), xs)
+    var = predict_variances(kernel, CoVariancePredictor(
+        z=z, chol_km=t["chol_km"], r_mat=t["r_mat"]), xs, 0.0,
+        predictive=False)
+    if "ordinal" in extra:
+        cols = cell_probs(torch.as_tensor(extra["cutpoints"], device=dev),
+                          mu, torch.clamp(var, min=1e-12))
+    elif "poisson" in extra or "negbin" in extra:
+        cols = torch.exp(mu + 0.5 * torch.clamp(var, min=0.0))[:, None]
+    else:
+        cols = mackay_squash(mu, torch.clamp(var, min=0.0))[:, None]
+    return [",".join(f"{v:f}" for v in row) for row in cols.cpu().numpy()]
+
+
+def cli_check_laplace(tag, model, csv, secs, out, dev, card) -> None:
+    """What -cmd test -with-stddev printed for a Laplace artifact: CLI_TEST
+    finite lines, probabilities in [0, 1], positive standard deviations,
+    and every line but its last column equal to the library's
+    (``library_laplace``)."""
+    xs_raw = torch.as_tensor(native.load_csv_file(csv), device=dev)
+    lines = Path(out).read_text().splitlines()
+    vals = np.array([[float(v) for v in line.split(",")] for line in lines])
+    art, kernel, z, _ = cli_artifact(model, dev)
+    extra = load_model(model)[1]
+    xs = (xs_raw - torch.as_tensor(art.input_means, device=dev)) / \
+        torch.as_tensor(art.input_stddevs, device=dev)
+    with torch.no_grad():
+        want = library_laplace(art, extra, kernel, z, xs)
+    same = sum(line.rsplit(",", 1)[0] == w for line, w in zip(lines, want))
+    probs = "poisson" not in extra and "negbin" not in extra
+    in_unit = (not probs) or bool(((vals[:, :-1] >= 0)
+                                   & (vals[:, :-1] <= 1)).all())
+    log(f"cli test {tag}: {secs:.2f} s wall; {len(lines)} lines of "
+        f"{vals.shape[1] if vals.ndim == 2 else 0} columns, finite "
+        f"{bool(np.isfinite(vals).all())}, stddev > 0 "
+        f"{bool((vals[:, -1] > 0).all())}, in [0, 1] {in_unit}; {same} of "
+        f"{CLI_TEST} lines equal to the library's as printed ({card})")
+    check(f"cli test {tag}", len(lines) == CLI_TEST
+          and bool(np.isfinite(vals).all()) and bool((vals[:, -1] > 0).all())
+          and in_unit and same == CLI_TEST, f"{len(lines)} lines, {same} "
+          "equal")
+
+
+def cli_side_by_side(tmp, runs) -> list:
+    """``cli_run`` for each (tag, argv, stdin path) of ``runs``, the
+    processes started together on the one card; [(wall seconds, stdout
+    path, stderr text)] in order.  A process's wall time includes waiting
+    for the card and the host cores the others hold."""
+    procs = []
+    for tag, argv, stdin_path in runs:
+        out = f"{tmp}/{tag}.out"
+        with open(stdin_path, "rb") as fin, open(out, "wb") as fout:
+            procs.append((tag, out, time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "gpr_tpu_torch.cli", *argv],
+                stdin=fin, stdout=fout, stderr=subprocess.PIPE,
+                cwd=str(Path(__file__).resolve().parent))))
+    results = []
+    for tag, out, t0, proc in procs:
+        err = proc.communicate(timeout=600)[1].decode()
+        secs = time.perf_counter() - t0
+        check(f"cli {tag}", proc.returncode == 0,
+              f"exit {proc.returncode}: {err[-2000:]}")
+        results.append((secs, out, err))
+    return results
+
+
+def cli_laplace_legs(tmp, dev, card, data, Xtr, test_csv) -> None:
+    """The Laplace modes (CLI_LAPLACE), each trained on the laplace phase's
+    labels of the training rows and served on the test rows; the six
+    trainings run side by side, then the six tests."""
+    labels = laplace_data(dev, data[0], data[1])
+    yf = bench_targets(dev, data[0])
+    runs, models = [], []
+    for tag, (name, flags) in CLI_LAPLACE.items():
+        csv = f"{tmp}/train_{name}.csv"
+        if not Path(csv).exists():
+            np.savetxt(csv, np.column_stack([
+                Xtr.cpu().numpy(),
+                *laplace_csv_columns(name, labels, Xtr.shape[0], yf)]),
+                fmt="%.9g", delimiter=",")
+        model = f"{tmp}/{tag}.npz"
+        runs.append((tag, ("-cmd", "train", "-model", model,
+                           *CLI_LAPLACE_BASE, *flags), csv))
+        models.append((tag, model))
+    t0 = time.perf_counter()
+    for (tag, _, _), (secs, _, err) in zip(runs, cli_side_by_side(tmp,
+                                                                  runs)):
+        cli_ext_report(tag, secs, err, card)
+    t1 = time.perf_counter()
+    served = cli_side_by_side(tmp, [
+        (f"test-{tag}", ("-cmd", "test", "-model", model, "-with-stddev"),
+         test_csv) for tag, model in models])
+    t2 = time.perf_counter()
+    for (tag, model), (secs, out, _) in zip(models, served):
+        cli_check_laplace(tag, model, test_csv, secs, out, dev, card)
+    log(f"cli laplace legs: {len(runs)} trainings side by side in "
+        f"{t1 - t0:.2f} s, their tests in {t2 - t1:.2f} s ({card})")
 
 
 def cli_coregionalization(err) -> np.ndarray:
@@ -2829,6 +3341,7 @@ def cli_phase(dev, card: str, data) -> None:
             cli_ext_report(tag, secs, err, card)
             ext_models.append((tag, model, test_csv))
 
+        cli_laplace_legs(tmp, dev, card, data, Xtr, test_csv)
         for tag, model, csv in (("host", host, test_csv),
                                 ("device-resumed", resumed, test_csv),
                                 ("matern52", matern, test_csv),
@@ -2857,6 +3370,7 @@ def main() -> int:
     composites_phase(dev, card, data)
     hetero_phase(dev, card, data)
     gaussian_ext_phase(dev, card, data)
+    laplace_phase(dev, card, data)
     cli_phase(dev, card, data)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

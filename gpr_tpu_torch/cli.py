@@ -30,9 +30,13 @@ projection, bit-equal to the JAX package's) and from a
 rows) or with the integer that seeds the JAX package's key (cosine's
 default frequencies): these draws differ from the JAX package's.
 
-Flags of modules that are not ported yet (``-cg``, the classification
-and count likelihood flags, ``-trainer sharded`` and ``-devices``) pass
-the JAX package's flag checks in its order, then exit naming their
+The Laplace likelihoods (``-classify`` with binary labels, ``-poisson``,
+``-binomial``, ``-negbin R0``, ``-ordinal``) train with ``-trainer
+device`` and write the regression artifact's schema with the mode's
+extras; ``-cmd test`` serves their probabilities, rates or counts.  Flags
+of modules that are not ported yet (``-cg``, ``-approx ep``, multi-class
+``-classify``, ``-trainer sharded`` and ``-devices``) pass the JAX
+package's flag and data checks in its order, then exit naming their
 ROADMAP.md item.
 
 Run: ``python3 -m gpr_tpu_torch.cli -cmd train -model m.npz < train.csv``,
@@ -55,17 +59,12 @@ F64 = torch.float64
 #: the ROADMAP.md queue 1 item that ports each flag's module
 _NOT_PORTED = (
     ("cg", "-cg", 10),
-    ("classify", "-classify", 11),
-    ("poisson", "-poisson", 11),
-    ("binomial", "-binomial", 11),
-    ("negbin", "-negbin", 11),
-    ("ordinal", "-ordinal", 11),
     ("devices", "-devices", 13),
 )
 #: artifact extras of the models that are not ported yet, in the JAX
-#: package's order of dispatch, and their ROADMAP.md queue 1 items
-_NOT_PORTED_EXTRAS = (("poisson", 11), ("negbin", 11), ("ordinal", 11),
-                      ("classify", 11), ("exact_cg", 10))
+#: package's order of dispatch, and their ROADMAP.md queue 1 items (a
+#: "classify" extra above 2 is the multi-class model's, item 11 too)
+_NOT_PORTED_EXTRAS = (("ep", 11), ("exact_cg", 10))
 
 
 def _not_ported(what: str, item: int):
@@ -369,9 +368,9 @@ def read_samples(stream) -> np.ndarray:
 
 def _check_flags(args, n, big_dim, inputs):
     """The JAX package's flag checks, in its order and with its messages
-    (``gpr_tpu/cli.py:336-465``); the data checks of the likelihoods that
-    are not ported are left to those modules.  Returns the number of
-    extension flags given (at most one passes)."""
+    (``gpr_tpu/cli.py:336-465``); the likelihoods' target checks follow in
+    ``_check_labels``.  Returns the number of extension flags given (at
+    most one passes)."""
     if args.tasks is not None:
         if args.tasks < 2:
             raise SystemExit("-tasks T needs T >= 2")
@@ -499,13 +498,120 @@ def _check_flags(args, n, big_dim, inputs):
     return n_extensions
 
 
-def _refuse_not_ported(args):
+def _check_labels(args, targets, trials, n):
+    """The JAX package's target checks of the likelihood modes, in its
+    order and with its messages (``gpr_tpu/cli.py:467-569``): class labels,
+    counts and categories are not centered.  Returns (targets, n_classes,
+    target_mean); binary labels come back in {-1, +1}."""
+    n_classes = 2
+    if args.classify:
+        # 0/1 or -1/+1 select the binary Laplace; integer labels 0..C-1
+        # with C >= 3 the softmax Laplace (not ported)
+        uniq_arr = np.unique(targets)
+        uniq = set(uniq_arr.tolist())
+        if uniq <= {0.0, 1.0}:
+            targets = 2.0 * targets - 1.0
+        elif uniq <= {-1.0, 1.0}:
+            pass
+        elif (np.all(uniq_arr == np.round(uniq_arr))
+              and uniq_arr.min() >= 0 and uniq_arr.max() >= 2
+              and uniq_arr.max() < 1024):
+            n_classes = int(uniq_arr.max()) + 1
+        else:
+            raise SystemExit(
+                "-classify needs 0/1, -1/+1, or integer 0..C-1 targets, "
+                f"got values {sorted(uniq)[:5]}"
+            )
+        if args.approx == "ep" and n_classes > 2:
+            raise SystemExit(
+                "-approx ep supports binary -classify only (multi-class "
+                "uses the softmax Laplace)"
+            )
+        if args.approx == "ep" and args.block_size:
+            raise SystemExit(
+                "-approx ep has no streaming variant; drop -block-size "
+                "(the mesh trainer already unbounds n across devices)"
+            )
+        if args.verbose:
+            if n_classes == 2:
+                pos = int((targets > 0).sum())
+                print(f"classes: {pos} positive / {n - pos} negative",
+                      file=sys.stderr)
+            else:
+                counts = np.bincount(targets.astype(int),
+                                     minlength=n_classes)
+                print(f"classes: {n_classes} "
+                      f"(counts {counts.tolist()})", file=sys.stderr)
+        return targets, n_classes, 0.0
+    if args.poisson:
+        if targets.min() < 0 or not np.all(targets == np.round(targets)):
+            raise SystemExit(
+                "-poisson needs nonnegative integer counts as targets"
+            )
+        if args.verbose:
+            print(f"counts: mean {targets.mean():.3f}, "
+                  f"max {int(targets.max())}", file=sys.stderr)
+        return targets, n_classes, 0.0
+    if args.binomial:
+        if (trials.min() < 1 or not np.all(trials == np.round(trials))
+                or targets.min() < 0
+                or not np.all(targets == np.round(targets))
+                or np.any(targets > trials)):
+            raise SystemExit(
+                "-binomial needs positive integer trials and integer "
+                "successes with 0 <= successes <= trials"
+            )
+        if args.verbose:
+            print(f"proportions: mean {float((targets / trials).mean()):.3f},"
+                  f" trials max {int(trials.max())}", file=sys.stderr)
+        return targets, n_classes, 0.0
+    if args.negbin is not None:
+        if args.negbin <= 0:
+            raise SystemExit("-negbin needs an initial dispersion R0 > 0")
+        if targets.min() < 0 or not np.all(targets == np.round(targets)):
+            raise SystemExit(
+                "-negbin needs nonnegative integer counts as targets"
+            )
+        if args.verbose:
+            print(f"counts: mean {targets.mean():.3f}, "
+                  f"var {targets.var():.3f}, max {int(targets.max())}",
+                  file=sys.stderr)
+        return targets, n_classes, 0.0
+    if args.ordinal:
+        uniq_arr = np.unique(targets)
+        if (not np.all(uniq_arr == np.round(uniq_arr))
+                or uniq_arr.min() < 0 or uniq_arr.max() < 1
+                or uniq_arr.max() >= 1024):
+            raise SystemExit(
+                "-ordinal needs integer category targets 0..K-1 (K >= 2), "
+                f"got values {uniq_arr[:5].tolist()}"
+            )
+        n_classes = int(uniq_arr.max()) + 1
+        if args.verbose:
+            counts = np.bincount(targets.astype(int), minlength=n_classes)
+            print(f"categories: {n_classes} (counts {counts.tolist()})",
+                  file=sys.stderr)
+        return targets, n_classes, 0.0
+    target_mean = float(targets.mean())
+    targets = targets - target_mean
+    target_variance = float(targets @ targets / n)
+    if args.verbose:
+        print(f"target variance: {target_variance:.5f}", file=sys.stderr)
+    return targets, n_classes, target_mean
+
+
+def _refuse_not_ported(args, n_classes=2):
     """Exit naming the ROADMAP.md item of the first flag whose module is
     not ported yet."""
     for attr, flag, item in _NOT_PORTED:
         value = getattr(args, attr)
         if value is not None and value is not False:
             raise _not_ported(flag, item)
+    if args.classify and n_classes > 2:
+        raise _not_ported(f"-classify with {n_classes} classes (the "
+                          "multi-class softmax Laplace)", 11)
+    if args.classify and args.approx == "ep":
+        raise _not_ported("-classify -approx ep", 11)
     if args.trainer == "sharded":
         raise _not_ported("-trainer sharded", 13)
 
@@ -519,6 +625,7 @@ def cmd_train(args, dev) -> int:
     if args.resume and args.checkpoint is None:
         raise SystemExit("-resume requires -checkpoint FILE")
     data = read_samples(sys.stdin)
+    trials = None
     if args.binomial:
         # binomial rows are x..., trials, successes (flag help)
         if data.shape[1] < 3:
@@ -526,6 +633,7 @@ def cmd_train(args, dev) -> int:
                 "-binomial training data needs at least 3 columns "
                 "(x..., trials, successes)"
             )
+        trials = data[:, -2]
         data = np.delete(data, -2, axis=1)
     if data.shape[1] < 2:
         raise SystemExit("training data needs at least 2 columns (x..., y)")
@@ -538,11 +646,8 @@ def cmd_train(args, dev) -> int:
         fam = icm_family(fam, big_dim - 1, args.tasks, args.coreg_rank)
         args.kernel = fam.name
 
-    target_mean = float(targets.mean())
-    targets = targets - target_mean
-    target_variance = float(targets @ targets / n)
-    if args.verbose:
-        print(f"target variance: {target_variance:.5f}", file=sys.stderr)
+    targets, n_classes, target_mean = _check_labels(args, targets, trials,
+                                                    n)
 
     input_means = inputs.mean(axis=0)
     # reference parity: "stddev" = sqrt(sum of squared deviations)
@@ -566,11 +671,15 @@ def cmd_train(args, dev) -> int:
                          "(device-sharded state is mesh-layout dependent)")
     if args.devices is not None and args.trainer != "sharded":
         raise SystemExit("-devices requires -trainer sharded")
-    _refuse_not_ported(args)
+    _refuse_not_ported(args, n_classes)
 
     log_sf2 = 2.0 * math.log(args.amplitude)
     X = torch.tensor(inputs, dtype=F64, device=dev)
-    y = torch.tensor(targets, dtype=F64, device=dev)
+    # ordinal categories are integer labels
+    y = (torch.tensor(targets.astype(np.int64), device=dev) if args.ordinal
+         else torch.tensor(targets, dtype=F64, device=dev))
+    trials_t = (torch.tensor(trials, dtype=F64, device=dev)
+                if trials is not None else None)
 
     if fam.name == "se_fat":
         def build_params(rng):
@@ -670,7 +779,8 @@ def cmd_train(args, dev) -> int:
     if n_extensions:
         return _train_extension(args, fam, dev, X, y, n_inducing, seed,
                                 build_params, got_signal, old_handler,
-                                target_mean, input_means, input_stddevs)
+                                target_mean, input_means, input_stddevs,
+                                n_classes, trials_t)
 
     if args.exact:
         signal.signal(signal.SIGINT, old_handler)
@@ -923,13 +1033,17 @@ def _train_on_device(args, fam, dev, X, y, n_inducing, seed, build_params,
 
 def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
                      got_signal, old_handler, target_mean, input_means,
-                     input_stddevs) -> int:
-    """-student-t / -warp / -pitc-block: the Gaussian-likelihood extensions
-    at the CLI surface (the JAX package's ``_train_extension``, its
-    single-device branches).  Each trains through the packed device L-BFGS
-    (``optim.fit_packed_objective``) and writes the regression artifact's
-    schema with the mode's extras:
+                     input_stddevs, n_classes=2, trials=None) -> int:
+    """The extension modes at the CLI surface (the JAX package's
+    ``_train_extension``, its single-device branches).  Each trains through
+    the packed device L-BFGS (``optim.fit_packed_objective``) and writes the
+    regression artifact's schema with the mode's extras:
 
+      * -classify (binary), -poisson, -binomial, -negbin R0, -ordinal: the
+        Laplace models (``models/classify.py`` and its siblings; dense, or
+        streaming with -block-size); coeffs = U^-1 V'a and r_mat = Rn U
+        serve the latent posterior through the standard predictors, and
+        -cmd test applies the mode's squash or moments;
       * -student-t NU: ``models.robust.fit_t`` (5 EM rounds);
       * -warp K: ``models.warped.fit_warped`` (variational, streaming);
         -cmd test integrates the inverse warp by Gauss-Hermite quadrature;
@@ -938,7 +1052,12 @@ def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
 
     -restarts N keeps the lowest final mean-NLL objective; -checkpoint and
     -resume follow the device trainer's rules (not with -student-t)."""
+    from .models.binomial import fit_binomial
+    from .models.classify import fit_classify
+    from .models.negbin import fit_negbin
+    from .models.ordinal import default_cutpoint_raw, fit_ordinal
     from .models.pitc import pitc_log_evidence
+    from .models.poisson import fit_poisson
     from .models.robust import fit_t
     from .models.warped import default_warp_params, fit_warped
     from .optim import Bailout, make_pack
@@ -987,8 +1106,41 @@ def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
                   max_iter=max_iter, state_callback=on_chunk)
 
     def run_one(r):
-        """One fit from start r: ((kernel, z, sigma2, warp), state)."""
+        """One fit from start r: ((kernel, z, sigma2 or the dispersion,
+        the warp or the cutpoint raws), state)."""
         params0, z0 = start(r)
+        laplace = dict(block_size=args.block_size, **common)
+        if args.classify or args.poisson or args.binomial:
+            pack = make_pack(params0, z0, 1.0, learn_sigma2=False)
+            init = load_resume_state(pack.x0)
+            if args.classify:
+                p, z, st = fit_classify(X, y, pack, init_state=init,
+                                        **laplace)
+            elif args.poisson:
+                p, z, st = fit_poisson(X, y, pack, init_state=init,
+                                       **laplace)
+            else:
+                p, z, st = fit_binomial(X, y, trials, pack, init_state=init,
+                                        **laplace)
+            return (p, z, None, None), st
+        if args.ordinal:
+            pack = make_pack(params0, z0, 1.0, learn_sigma2=False)
+            cut0 = default_cutpoint_raw(n_classes, dtype=X.dtype, device=dev)
+            p, z, cut_raw, st = fit_ordinal(
+                X, y, pack, cut0,
+                init_state=load_resume_state(torch.cat([pack.x0, cut0])),
+                **laplace)
+            return (p, z, None, cut_raw), st
+        if args.negbin is not None:
+            # the pack's positive sigma2 slot carries the NB dispersion r
+            pack = make_pack(params0, z0, args.negbin)
+            p, z, r_disp, st = fit_negbin(
+                X, y, pack, init_state=load_resume_state(pack.x0), **laplace)
+            if args.verbose:
+                print(f"negbin: learned dispersion r = {float(r_disp):.4f} "
+                      f"(started at {args.negbin:g}; larger = closer to "
+                      f"Poisson)", file=sys.stderr)
+            return (p, z, r_disp, None), st
         pack = make_pack(params0, z0, args.sigma2)
         if args.student_t is not None:
             n_em = 5
@@ -1055,16 +1207,28 @@ def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
               f"|gradient|={float(torch.linalg.norm(st.g)):.2e}",
               file=sys.stderr)
     _write_extension_artifact(args, fam, result, X, y, target_mean,
-                              input_means, input_stddevs, block_size)
+                              input_means, input_stddevs, block_size,
+                              n_classes, trials)
     return 0
 
 
 def _unpack_extension_state(args, st, r, dev, start):
-    """(kernel, z, sigma2, warp) of a bailed-out optimizer state."""
+    """(kernel, z, sigma2 or the dispersion, the warp or the cutpoint raws)
+    of a bailed-out optimizer state."""
     from .models.warped import default_warp_params, make_warped_pack
-    from .optim import make_pack
+    from .optim import extend_pack, make_pack
 
     params0, z0 = start(r)
+    if args.classify or args.poisson or args.binomial or args.ordinal:
+        pack = make_pack(params0, z0, 1.0, learn_sigma2=False)
+        if not args.ordinal:
+            return (*pack.unpack(st.x)[:2], None, None)
+        # the K-1 cutpoint raws ride after the base coordinates
+        k1 = int(st.x.shape[0]) - int(pack.x0.shape[0])
+        ext = extend_pack(pack, pack.x0.new_zeros(k1))
+        return (*ext.unpack(st.x)[:2], None, ext.unpack_extra(st.x))
+    if args.negbin is not None:
+        return (*make_pack(params0, z0, args.negbin).unpack(st.x), None)
     pack = make_pack(params0, z0, args.sigma2)
     if args.warp:
         wp0 = default_warp_params(args.warp, device=dev,
@@ -1073,9 +1237,69 @@ def _unpack_extension_state(args, st, r, dev, start):
     return (*pack.unpack(st.x), None)
 
 
+def _laplace_likelihood(args, y, s2, cut_raw, trials):
+    """(parts, loglik, lik, lik_is_row, dense Newton steps, extras) of the
+    Laplace mode the flags select, at the trained dispersion ``s2``
+    (-negbin) or cutpoint raws (-ordinal)."""
+    from .models import binomial, classify, negbin, ordinal, poisson
+
+    zeros = torch.zeros_like(y, dtype=torch.float64)
+    if args.ordinal:
+        cuts = ordinal.cutpoints_from_raw(cut_raw)
+        return (ordinal.ord_parts, ordinal.ord_loglik, (y, cuts),
+                (True, False), 20,
+                {"ordinal": np.asarray(int(cut_raw.shape[0]) + 1),
+                 "cutpoints": cuts.cpu().numpy()})
+    if args.poisson:
+        return (poisson.pois_parts, poisson.pois_loglik, (y, zeros), None,
+                20, {"poisson": np.asarray(1)})
+    if args.binomial:
+        # the served squash is the classifier's: a classify artifact with a
+        # provenance marker
+        return (binomial.bin_parts, binomial.bin_loglik, (y, trials), None,
+                15, {"classify": np.asarray(2), "binomial": np.asarray(1)})
+    if args.negbin is not None:
+        r = torch.as_tensor(s2, dtype=y.dtype, device=y.device)
+        return (negbin.nb_parts, negbin.nb_loglik, (y, r, zeros),
+                (True, False, True), 20, {"negbin": np.asarray(float(r))})
+    return (classify.logit_parts, classify.logit_loglik, (y,), None, 15,
+            {"classify": np.asarray(2)})
+
+
+def _laplace_artifact(args, p, z, s2, cut_raw, X, y, trials):
+    """(coeffs, chol_km, r_mat, extras) of a Laplace model: the mode's
+    coeffs = U^-1 V'a and r_mat = Rn U, so the standard predictors give the
+    latent posterior's mean and variance.  Dense: the family's default
+    Newton steps; with -block-size: the streaming state of
+    ``stream_laplace_parts`` at its default 15 steps, as the JAX package's
+    writer."""
+    from .models.classify import _fitc_prior, mode_factor
+    from .models.classify_stream import stream_laplace_parts
+    from .models.ift import W_FLOOR, newton_scan_generic, tmatmul
+    from .numerics.linalg import matmul, solve_tri
+
+    parts, loglik, lik, is_row, steps, extra = _laplace_likelihood(
+        args, y, s2, cut_raw, trials)
+    if args.block_size:
+        inducing, _, _, _, vta, rn, *_ = stream_laplace_parts(
+            p, z, X, lik, parts=parts, loglik=loglik, lik_is_row=is_row,
+            block_size=args.block_size)
+    else:
+        inducing, v, d = _fitc_prior(p, z, X)
+        mask = torch.ones(y.shape, dtype=X.dtype, device=X.device)
+        f_hat, a = newton_scan_generic(parts, v, d, lik, mask,
+                                       newton_iters=steps)
+        _, w = parts(f_hat, lik, mask)
+        rn = mode_factor(v, d, torch.maximum(w, w.new_tensor(W_FLOOR)))
+        vta = tmatmul(v, a)
+    return (solve_tri(inducing.chol_km, vta), inducing.chol_km,
+            matmul(rn, inducing.chol_km), extra)
+
+
 @torch.no_grad()
 def _write_extension_artifact(args, fam, result, X, y, target_mean,
-                              input_means, input_stddevs, block_size):
+                              input_means, input_stddevs, block_size,
+                              n_classes=2, trials=None):
     """Save the predictor artifact of an extension mode: the standard
     schema (inducing, coeffs, chol_km, r_mat), so -cmd test serves every
     mode through the same algebra, and the mode's extras as the JAX package
@@ -1088,7 +1312,12 @@ def _write_extension_artifact(args, fam, result, X, y, target_mean,
     )
 
     p, z, s2, wp = result
-    if args.student_t is not None:
+    if (args.classify or args.poisson or args.binomial or args.ordinal
+            or args.negbin is not None):
+        coeffs, chol_km, r_mat, extra = _laplace_artifact(
+            args, p, z, s2, wp, X, y, trials)
+        sigma2 = 0.0
+    elif args.student_t is not None:
         # the converged robust posterior IS a heteroskedastic FITC
         # posterior; the artifact's sigma2 carries the moment-matched t
         # noise variance, so the standard test path serves it
@@ -1225,6 +1454,8 @@ def cmd_test(args, dev) -> int:
             f"incompatible dimension of inputs ({data.shape[1]}), expected "
             f"{big_dim}"
         )
+    if "classify" in extra and int(extra["classify"]) > 2:
+        raise _not_ported("serving a multi-class classify artifact", 11)
     for key, item in _NOT_PORTED_EXTRAS:
         if key in extra:
             raise _not_ported(f"serving a {key} artifact", item)
@@ -1238,6 +1469,13 @@ def cmd_test(args, dev) -> int:
     mp = MeanPredictor(z=z, coeffs=t(art.coeffs))
     cvp = CoVariancePredictor(z=z, chol_km=t(art.chol_km),
                               r_mat=t(art.r_mat))
+    if any(key in extra for key in LAPLACE_EXTRAS):
+        with torch.no_grad():
+            mu = predict_means(kernel, mp, X).cpu().numpy()
+            var = predict_variances(kernel, cvp, X, 0.0,
+                                    predictive=False).cpu().numpy()
+        sys.stdout.write(serve_laplace(extra, mu, var, args.with_stddev))
+        return 0
     if "exact" in extra:
         means, variances = serve_exact(kernel, art, X,
                                        with_stddev=args.with_stddev,
@@ -1272,6 +1510,59 @@ def cmd_test(args, dev) -> int:
             variances = None
     _write_predictions(means, variances)
     return 0
+
+
+#: the extras of the Laplace artifacts, in the JAX package's order of
+#: dispatch
+LAPLACE_EXTRAS = ("poisson", "negbin", "ordinal", "classify")
+
+
+def serve_laplace(extra, mu, var, with_stddev=False) -> str:
+    """The text -cmd test prints for a Laplace artifact from the latent
+    posterior's means ``mu`` and variances ``var`` (numpy, f64): the
+    lognormal rate moments (poisson), the NB law of total variance with
+    the learned dispersion (negbin), the exact Gaussian integrals of the
+    probit cells, one column a category (ordinal), or MacKay's probit
+    squash of the logit (classify, binomial); -with-stddev adds the rate's,
+    the count's or the latent's standard deviation."""
+    if "poisson" in extra or "negbin" in extra:
+        var = np.maximum(var, 0.0)
+        if "poisson" in extra:
+            mean = np.exp(mu + 0.5 * var)
+            sd = np.sqrt(np.maximum(
+                (np.exp(var) - 1.0) * np.exp(2.0 * mu + var), 0.0))
+        else:
+            r_disp = float(extra["negbin"])
+            mean = np.exp(mu + 0.5 * var)
+            m2 = np.exp(2.0 * mu + 2.0 * var)
+            sd = np.sqrt(np.maximum(
+                mean + (1.0 + 1.0 / r_disp) * m2 - mean * mean, 0.0))
+        if with_stddev:
+            return "".join(f"{m:f},{s:f}\n" for m, s in zip(mean, sd))
+        return "".join(f"{m:f}\n" for m in mean)
+    if "ordinal" in extra:
+        from scipy.special import ndtr
+
+        var = np.maximum(var, 1e-12)
+        cuts = np.asarray(extra["cutpoints"])
+        scale = 1.0 / np.sqrt(1.0 + var)
+        cdf = ndtr((cuts[None, :] - mu[:, None]) * scale[:, None])
+        upper = np.concatenate([cdf, np.ones((len(mu), 1))], axis=1)
+        lower = np.concatenate([np.zeros((len(mu), 1)), cdf], axis=1)
+        probs = np.maximum(upper - lower, 0.0)
+        lines = []
+        for p_row, v in zip(probs, var):
+            cols = [f"{p:f}" for p in p_row]
+            if with_stddev:
+                cols.append(f"{math.sqrt(v):f}")
+            lines.append(",".join(cols) + "\n")
+        return "".join(lines)
+    var = np.maximum(var, 0.0)
+    prob = 1.0 / (1.0 + np.exp(-mu / np.sqrt(1.0 + np.pi * var / 8.0)))
+    if with_stddev:
+        return "".join(f"{p:f},{math.sqrt(v):f}\n"
+                       for p, v in zip(prob, var))
+    return "".join(f"{p:f}\n" for p in prob)
 
 
 def _write_predictions(means, variances=None):

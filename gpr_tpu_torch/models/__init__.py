@@ -1,3 +1,26 @@
+from .binomial import (
+    binomial_laplace_mode,
+    binomial_log_evidence,
+    binomial_newton_scan,
+    binomial_predict,
+    fit_binomial,
+)
+from .classify import (
+    classify_log_evidence,
+    classify_predict,
+    fit_classify,
+    laplace_mode,
+    newton_scan,
+)
+from .classify_stream import (
+    newton_scan_stream,
+    stream_classify_log_evidence,
+    stream_classify_parts,
+    stream_classify_predict,
+    stream_laplace_log_evidence,
+    stream_laplace_parts,
+    stream_prior_diag,
+)
 from .exact import (
     ExactModel,
     ExactTrained,
@@ -27,12 +50,27 @@ from .fitc import (
     log_evidence,
     update_sigma2,
 )
+from .ift import (
+    LaplaceFixedPoint,
+    fitc_kdot,
+    laplace_evidence_core,
+    laplace_mode_generic,
+    make_binv,
+    newton_scan_generic,
+)
 from .loo import (
     loo_log_likelihood as loo_log_likelihood_fitc,
     loo_objective as loo_objective_fitc,
     loo_posterior as loo_posterior_fitc,
 )
 from .multitask import batched_log_evidence, batched_value_and_grad, multi_start
+from .negbin import (
+    fit_negbin,
+    negbin_laplace_mode,
+    negbin_log_evidence,
+    negbin_newton_scan,
+    negbin_predict,
+)
 from .online import (
     OnlineState,
     online_downdate,
@@ -41,7 +79,23 @@ from .online import (
     online_predictors,
     online_update,
 )
+from .ordinal import (
+    cutpoints_from_raw,
+    default_cutpoint_raw,
+    fit_ordinal,
+    ordinal_laplace_mode,
+    ordinal_log_evidence,
+    ordinal_newton_scan,
+    ordinal_predict,
+)
 from .pitc import pitc_coeffs, pitc_log_evidence, pitc_stream_stats
+from .poisson import (
+    fit_poisson,
+    poisson_laplace_mode,
+    poisson_log_evidence,
+    poisson_newton_scan,
+    poisson_predict,
+)
 from .predict import (
     CoVariancePredictor,
     MeanPredictor,

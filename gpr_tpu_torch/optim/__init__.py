@@ -8,7 +8,7 @@ from .lbfgs_device import (
     minimize_lbfgs_device,
     value_and_grad,
 )
-from .pack import HyperPack, make_pack
+from .pack import ExtendedPack, HyperPack, extend_pack, make_pack
 from .polish import PolishReport, evaluate_f64, polish
 from .priors import field_priors, normal, soft_box
 from .sgd_smd import (

@@ -35,6 +35,38 @@ class HyperPack:
     fixed: tuple = ()
 
 
+@dataclasses.dataclass(frozen=True)
+class ExtendedPack:
+    """A base pack plus extra (likelihood) parameters appended to the
+    optimization vector, e.g. ordinal cutpoints, which are neither kernel
+    hypers nor sigma2.  ``unpack`` sees only the base coordinates, so the
+    extended pack drops into every base-pack code path; ``unpack_extra``
+    recovers the appended tensor."""
+
+    x0: torch.Tensor
+    unpack: Callable[[torch.Tensor], tuple[Any, torch.Tensor, torch.Tensor]]
+    n_hypers: int
+    learn_sigma2: bool
+    base: HyperPack
+    n_extra: int
+    unpack_extra: Callable[[torch.Tensor], torch.Tensor]
+
+
+def extend_pack(pack: HyperPack, extra0: torch.Tensor) -> ExtendedPack:
+    """Append the tensor ``extra0`` (flattened row-major) after the base
+    pack's coordinates.  Layout: [base coords | extra leaves], as the JAX
+    package's ``ravel_pytree``."""
+    n_base = int(pack.x0.shape[0])
+    x0 = torch.cat([pack.x0, extra0.detach().reshape(-1).to(
+        dtype=pack.x0.dtype, device=pack.x0.device)])
+    return ExtendedPack(
+        x0=x0, unpack=lambda x: pack.unpack(x[:n_base]),
+        n_hypers=int(x0.shape[0]), learn_sigma2=pack.learn_sigma2,
+        base=pack, n_extra=extra0.numel(),
+        unpack_extra=lambda x: x[n_base:].reshape(extra0.shape),
+    )
+
+
 def make_pack(kernel, z0, sigma2_0, *, learn_sigma2: bool = True,
               learn_inducing: bool | None = None,
               fixed: Sequence[str] = ()) -> HyperPack:

@@ -7,8 +7,8 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent / "gpr_tpu_torch"
 # modules of the training leg, the roofline path, the Quick-start path, the
-# command-line path, the base kernel families and the Gaussian-likelihood
-# extensions, named so that a move or a
+# command-line path, the base kernel families, the Gaussian-likelihood
+# extensions and the Laplace likelihoods, named so that a move or a
 # rename cannot drop them from the scan unnoticed
 NEWER = ("models/fitc.py", "optim/lbfgs.py", "optim/train.py",
          "optim/polish.py", "ops/gemm_chain.py", "datasets.py",
@@ -19,7 +19,10 @@ NEWER = ("models/fitc.py", "optim/lbfgs.py", "optim/train.py",
          "kernels/cosine.py", "kernels/lin_one.py", "kernels/lin_ard.py",
          "kernels/const.py", "numerics/block_diag.py", "models/robust.py",
          "models/warped.py", "models/pitc.py", "models/online.py",
-         "models/exact.py", "models/multitask.py")
+         "models/exact.py", "models/multitask.py", "models/ift.py",
+         "models/classify.py", "models/classify_stream.py",
+         "models/poisson.py", "models/binomial.py", "models/negbin.py",
+         "models/ordinal.py")
 
 
 def _jax_imports(path):
@@ -72,6 +75,11 @@ def test_import_loads_no_jax():
         "from gpr_tpu_torch.models import (fit_t, fit_warped, "
         "pitc_log_evidence, online_update, fit_exact, multi_start)\n"
         "from gpr_tpu_torch.convert import warp_from_jax\n"
+        "from gpr_tpu_torch.models.classify import classify_log_evidence\n"
+        "from gpr_tpu_torch.models.ordinal import fit_ordinal\n"
+        "from gpr_tpu_torch.models import (fit_classify, fit_poisson, "
+        "fit_binomial, fit_negbin, stream_classify_log_evidence)\n"
+        "from gpr_tpu_torch.optim import extend_pack\n"
         "assert gpr_tpu_torch.io.native.get_lib() is not None\n"
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
