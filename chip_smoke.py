@@ -5,8 +5,8 @@ streaming route, the base kernel families, the composite families (the
 combinators, the ICM task kernel, the spectral mixture), per-row sigma2,
 the Gaussian-likelihood extensions (warped, online, PITC, Student-t, exact,
 batched tasks), the Laplace likelihood families (logit, Poisson, binomial,
-NB2, ordinal) and the command-line trainer/predictor, once on one NVIDIA
-GPU.
+NB2, ordinal), EP and the softmax multi-class Laplace and the command-line
+trainer/predictor, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -207,7 +207,30 @@ Phases, each printed on its own line:
    100,000 rows, whose mean NLL must fall; classify_predict against
    stream_classify_predict at 100,000 points (probabilities in (0, 1),
    within 1e-5).
-18. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
+18. classify_ext -- EP and the softmax Laplace (no kernel; none may
+   launch) on the same draw, SE-iso at bench's hypers, jitter 1e-6:
+   bench.py's EP leg (labels sign(y) + (y == 0), 20 sweeps, "stationary")
+   dense at 1M, the trace of its sweeps printed, and bench.py's
+   multi-class leg (labels digitize(x0 + x1, [-0.8, 0.8]), C = 3, 8 Newton
+   steps, "ift") dense at 1M and streaming at 100,000 rows (block 8,192),
+   each value and gradient (log_ell, log_sf2, z) in f32 against its f64
+   twin on the card (evidence 2e-5, each group 1e-3, but for
+   CLASSIFY_EXT_F32_NOT_HELD, held in f64 card vs CPU over 100,000 rows,
+   1e-8), timed beside its bound (``ep_bound``, ``multi_bound``) with its
+   peak memory, and for information EP with its sweeps and evidence in f64
+   on the f32 V and the multi-class leg all in f32 (the JAX package's
+   dtypes); the gradient routes in f64 at 100,000 rows (EP stationary
+   vs unroll, multi-class IFT vs unroll, streaming vs dense: evidence
+   1e-9, groups 1e-6, with the sites and the mode converged, 40 sweeps and
+   20 steps; at bench's counts printed); fit_classify_ep and
+   fit_classify_multi dense and streaming, 5 iterations in f32 at 100,000
+   rows, whose mean NLL must fall; ep_predict against the
+   ep_posterior_state route at 100,000 points (means 1e-5, variances and
+   probabilities 1e-4); the dense multi-class state against the streamed
+   one, served at 100,000 points (mu, Sigma, the Monte Carlo probabilities
+   of one generator seed within 1e-5 of the largest entry, each row
+   summing to 1); the dense state at 1M rows, timed once with its peak.
+19. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
    bench's draw (the first 200,000 rows of X with the fit phase's targets;
    rows 200,000-299,999 to test on), se_fat with -n-inducing 300 -dim-red 8
    -log-het-sked -5 -multiscale -inducing-init first -seed 0: (a) the host
@@ -231,14 +254,19 @@ Phases, each printed on its own line:
    posterior); (h) the Laplace modes -classify, -classify -block-size
    16384, -poisson, -binomial, -negbin 2 and -ordinal (-kernel se_iso
    -n-inducing 300 -trainer device -max-iter 2) on the same rows with the
-   laplace phase's targets (-classify: yf > 0 of the fit phase's), the six
-   trainings side by side on the card, then their -cmd test -with-stddev
-   side by side: 100,000 finite lines each, every line but its stddev
-   column equal, as printed, to the library's latent posterior on the
-   artifact through the model's link (``library_laplace``).  Each
-   command's wall time, iterations and evaluations (the device trainer
-   prints them), the log evidence (recomputed here in f64) and SMSE, which
-   CSV parser ran, and the wall time of -cmd test on one row (what every
+   laplace phase's targets (-classify: yf > 0 of the fit phase's), and
+   -classify -approx ep (the same labels) and -classify on bench's
+   multi-class labels, dense and -block-size 16384, the nine trainings
+   side by side on the card, then their -cmd test -with-stddev side by
+   side: 100,000 finite lines each, every line but its stddev column
+   (multi-class: every whole line) equal, as printed, to the library's
+   latent posterior on the artifact through the model's link (EP's exact
+   probit predictive; multi-class: multiclass_predict_from_state with a
+   generator seeded 0, and the latent stddevs) (``library_laplace``).  Each
+   command's wall time (the trainings of (d)-(g) run side by side, and
+   so do the tests of (c)-(g) after the Laplace legs), iterations and evaluations (the device trainer prints
+   them), the log evidence (recomputed here in f64) and SMSE, which CSV
+   parser ran, and the wall time of -cmd test on one row (what every
    command pays to start).
 Timings: median of 5 after a warm-up, host clock around synchronised
 calls, or CUDA events where named (the chain and its torch.matmul
@@ -317,10 +345,30 @@ from gpr_tpu_torch.models import (
 )
 from gpr_tpu_torch.models.binomial import binomial_log_evidence
 from gpr_tpu_torch.models.classify import (
+    _fitc_prior,
     classify_log_evidence,
+    prior_up,
     classify_predict,
     fit_classify,
     mackay_squash,
+)
+from gpr_tpu_torch.models.classify_ep import (
+    ep_log_evidence,
+    ep_log_evidence_from_sites,
+    ep_posterior_state,
+    ep_predict,
+    ep_sweeps,
+    fit_classify_ep,
+)
+from gpr_tpu_torch.models.classify_multi import (
+    fit_classify_multi,
+    multiclass_log_evidence,
+    multiclass_posterior_state,
+    multiclass_predict_from_state,
+)
+from gpr_tpu_torch.models.classify_multi_stream import (
+    stream_multiclass_log_evidence,
+    stream_multiclass_state,
 )
 from gpr_tpu_torch.models.classify_stream import stream_classify_predict
 from gpr_tpu_torch.models.exact import (
@@ -2632,7 +2680,7 @@ def gaussian_ext_phase(dev, card: str, data) -> None:
 
 # -- laplace: the Laplace likelihood families (bench.py:565-585, 757-775)
 LAPLACE_STEPS = 15  # bench's classify and ordinal legs
-LAPLACE_ROWS = 100_000  # streaming counts and ordinal, IFT vs unroll, fits
+LAPLACE_ROWS = 100_000  # streaming legs, gradient routes, fits, predictions
 LAPLACE_FIT_ITERS = 5
 LAPLACE_SEED = 5  # the counts' numpy draw
 NB_R = 2.0  # the NB2 dispersion of the draw and of the evaluation
@@ -2737,9 +2785,11 @@ def classify_bound(n, d, m, steps) -> dict:
     return bound(flops, 4.0 * (n * (d + 1) + 2 * m * d + 2))
 
 
-def laplace_time(tag, fn, dev, card, reps=5, note="") -> float:
+def laplace_time(tag, fn, dev, card, reps=5, note="", prefix="laplace",
+                 b=None) -> float:
     """Median of ``reps`` after a warm-up, the peak memory above what was
-    allocated before, the SM clock and the power draw."""
+    allocated before, the SM clock and the power draw (beside the bound
+    ``b`` where given)."""
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     sampler = clock_log()
@@ -2750,67 +2800,79 @@ def laplace_time(tag, fn, dev, card, reps=5, note="") -> float:
     finally:
         samples = read_clock_log(sampler)
     peak = torch.cuda.max_memory_allocated(dev) - base
-    log(f"time laplace {tag}: {ms:.3f} ms (median of {reps}){note}; peak "
+    if b is not None:
+        note += (f"; bound {b['bound_ms']:.3f} ms ({b['bound_by']}), "
+                 f"{ms / b['bound_ms']:.1f}x")
+    log(f"time {prefix} {tag}: {ms:.3f} ms (median of {reps}){note}; peak "
         f"memory {peak / 2**30:.2f} GiB above the data; "
         f"{clock_window(samples, t0, t1)} ({card})")
     return ms
 
 
-def laplace_f64_cpu(name, labels, X32, Z, block, groups) -> str:
-    """What f32 cannot resolve, held in f64 card vs CPU over LAPLACE_ROWS:
-    the evidence within 1e-8 relative and the named groups (every group
-    where ``groups`` is None) within 1e-8 (2-norm)."""
+def f64_card_vs_cpu(prefix, tag, vg, names, labels, X32, Z, groups) -> str:
+    """What f32 cannot resolve, held in f64 card vs CPU over LAPLACE_ROWS
+    rows: the evidence of ``vg(labels, X, Z) -> (evidence, gradients)``
+    within 1e-8 relative and the named groups (every group where
+    ``groups`` is empty) within 1e-8 (2-norm)."""
     rows = laplace_rows(labels, LAPLACE_ROWS)
     X = X32[:LAPLACE_ROWS].double()
-    card = laplace_value_and_grad(name, rows, X, Z, block)
+    card = vg(rows, X, Z)
     cpu_rows = (tuple(t.cpu() for t in rows) if isinstance(rows, tuple)
                 else rows.cpu())
-    cpu = laplace_value_and_grad(name, cpu_rows, X.cpu(), Z, block)
+    cpu = vg(cpu_rows, X.cpu(), Z)
     rel = abs(card[0] - cpu[0]) / abs(cpu[0])
-    check(f"laplace {name} f64 card vs cpu evidence", rel <= 1e-8,
+    check(f"{prefix} {tag} f64 card vs cpu evidence", rel <= 1e-8,
           f"rel {rel:.3e}")
     errs = [f"evidence {rel:.2e}"]
-    for g_name, g, w in zip(laplace_names(name), card[1], cpu[1]):
+    for g_name, g, w in zip(names, card[1], cpu[1]):
         err = rel_norm(g.cpu(), w)
-        if groups is None or g_name in groups:
-            check(f"laplace {name} f64 card vs cpu {g_name}", err <= 1e-8,
+        if not groups or g_name in groups:
+            check(f"{prefix} {tag} f64 card vs cpu {g_name}", err <= 1e-8,
                   f"rel {err:.3e}")
         errs.append(f"{g_name} {err:.2e}")
     return ", ".join(errs)
 
 
-def laplace_vs_twin(tag, name, labels, X32, Z, block, dev, card,
-                    reps=5) -> None:
-    """One model in f32 (no kernel launched) against its f64 twin on the
-    card: the section 2 bounds but for LAPLACE_F32_NOT_HELD, which is held
-    in f64 card vs CPU; then timed.  Returns the twin's (evidence,
-    gradients)."""
-    names = laplace_names(name)
-    (ev, grads), _ = counted(f"laplace {tag}", lambda: laplace_value_and_grad(
-        name, labels, X32, Z, block), ())
-    check(f"laplace {tag} launches", all(
+def vs_twin(prefix, tag, vg, names, labels, X32, Z, dev, card, not_held,
+            reps=5, b=None) -> tuple:
+    """One leg, ``vg(labels, X, Z) -> (evidence, gradients)``, in f32 (no
+    kernel launched) against its f64 twin on the card: the section 2
+    bounds (evidence 2e-5, each group 1e-3) but for the groups of
+    ``not_held[tag]``, held in f64 card vs CPU; then timed.  Returns the
+    twin's (evidence, gradients)."""
+    (ev, grads), _ = counted(f"{prefix} {tag}", lambda: vg(labels, X32, Z),
+                             ())
+    check(f"{prefix} {tag} launches", all(
         w.launches == 0 for w in WRAPPERS.values()), "a kernel launched")
-    twin = laplace_value_and_grad(name, labels, X32.double(), Z, block)
+    twin = vg(labels, X32.double(), Z)
     rel = (ev - twin[0]) / abs(twin[0])
-    loose = LAPLACE_F32_NOT_HELD.get(tag, ())
+    loose = not_held.get(tag, ())
     errs = []
-    if loose is not None:
-        check(f"laplace {tag} evidence", abs(rel) <= 2e-5, f"rel {rel:.3e}")
+    check(f"{prefix} {tag} evidence", abs(rel) <= 2e-5, f"rel {rel:.3e}")
     for g_name, g, w in zip(names, grads, twin[1]):
         err = rel_norm(g, w)
-        if loose is not None and g_name not in loose:
-            check(f"laplace {tag} grad {g_name}", err <= 1e-3
+        if g_name not in loose:
+            check(f"{prefix} {tag} grad {g_name}", err <= 1e-3
                   and bool(torch.isfinite(g).all()), f"rel {err:.3e}")
         errs.append(f"{g_name} {err:.2e}")
-    log(f"laplace {tag} f32 vs the f64 twin {twin[0]:.3f}: evidence rel "
+    log(f"{prefix} {tag} f32 vs the f64 twin {twin[0]:.3f}: evidence rel "
         f"{rel:+.2e}; grads {', '.join(errs)} ({card})")
-    if tag in LAPLACE_F32_NOT_HELD:
-        log(f"laplace {tag} not held in f32 ({loose or 'whole'}); f64 card "
-            f"vs cpu over {LAPLACE_ROWS} rows: "
-            f"{laplace_f64_cpu(name, labels, X32, Z, block, loose)}")
-    laplace_time(f"{tag} value+grad f32", lambda: laplace_value_and_grad(
-        name, labels, X32, Z, block), dev, card, reps)
+    if tag in not_held:
+        log(f"{prefix} {tag} not held in f32 ({loose}); f64 card vs cpu over "
+            f"{LAPLACE_ROWS} rows: "
+            + f64_card_vs_cpu(prefix, tag, vg, names, labels, X32, Z, loose))
+    laplace_time(f"{tag} value+grad f32", lambda: vg(labels, X32, Z), dev,
+                 card, reps, prefix=prefix, b=b)
     return twin
+
+
+def laplace_vs_twin(tag, name, labels, X32, Z, block, dev, card,
+                    reps=5) -> tuple:
+    """``vs_twin`` of a Laplace model, LAPLACE_F32_NOT_HELD its loose
+    groups."""
+    return vs_twin("laplace", tag, lambda lab, X, Z: laplace_value_and_grad(
+        name, lab, X, Z, block), laplace_names(name), labels, X32, Z, dev,
+        card, LAPLACE_F32_NOT_HELD, reps)
 
 
 def laplace_ablation(tag, name, labels, X32, Z, twin, card) -> None:
@@ -2968,6 +3030,392 @@ def laplace_phase(dev, card: str, data) -> None:
     log(f"laplace phase: {time.perf_counter() - t0:.1f} s ({card})")
 
 
+# -- classify_ext: EP and the softmax Laplace (multi-class)
+EP_SWEEPS = 20  # bench.py's EP leg
+MC_STEPS = 8  # bench.py's multi-class leg
+# the gradient routes agree at a fixed point: sites and mode converged
+EP_ROUTE_SWEEPS, MC_ROUTE_STEPS = 40, 20
+MC_EDGES = (-0.8, 0.8)  # bench's multi-class labels digitize(x0 + x1): C = 3
+MC_CLASSES = len(MC_EDGES) + 1
+MC_FIT_EDGES = (-0.5, 0.5)  # the fits' labels digitize(yf): noisy, C = 3
+GROUPS = ("log_ell", "log_sf2", "z")
+EXT_FIT_ITERS = 5
+# What f32 cannot resolve in the classify_ext legs, by leg: printed against
+# the f64 twin, held in f64 card vs CPU over LAPLACE_ROWS rows.  Bench's EP leg
+# at 1M rows: its log-lengthscale gradient (3.5e-3 of the f64 twin) comes
+# from the f32 prior itself, V = Knm U^-1 and d = kdiag - rowsq(V): with
+# the sweeps and the evidence in f64 on the same f32 V it misses as far
+# (``ep_f64_on_f32``'s line).
+CLASSIFY_EXT_F32_NOT_HELD = {"ep dense": ("log_ell",)}
+
+
+def multi_labels(X):
+    """bench.py's multi-class labels: digitize(x0 + x1, MC_EDGES), int64 on
+    X's device."""
+    s = (X[:, 0] + X[:, 1]).cpu().numpy()
+    return torch.as_tensor(np.digitize(s, MC_EDGES), dtype=torch.int64,
+                           device=X.device)
+
+
+def classify_ext_model(name, labels, block=None, grad_impl=None,
+                       count=None):
+    """The evidence fn(kernel, z, X) of a classify_ext leg: "ep" (``count``
+    sweeps, EP_SWEEPS by default, ``grad_impl`` "stationary" by default) or
+    "multi" (``count`` Newton steps, MC_STEPS by default, dense or streamed
+    by ``block``, "ift" by default), at jitter 1e-6, on ``labels`` (EP's
+    cast to X's dtype)."""
+    if name == "ep":
+        return lambda k, z, X: ep_log_evidence(
+            k, z, X, labels.to(X.dtype), n_sweeps=count or EP_SWEEPS,
+            jitter=JITTER, grad_impl=grad_impl or "stationary")
+    steps = count or MC_STEPS
+    if block is None:
+        return lambda k, z, X: multiclass_log_evidence(
+            k, z, X, labels, MC_CLASSES, newton_iters=steps, jitter=JITTER,
+            grad_impl=grad_impl or "ift")
+    return lambda k, z, X: stream_multiclass_log_evidence(
+        k, z, X, labels, MC_CLASSES, block_size=block, newton_iters=steps,
+        jitter=JITTER, grad_impl=grad_impl or "ift")
+
+
+def classify_ext_value_and_grad(name, labels, X, Z, block=None,
+                                grad_impl=None, count=None):
+    """A leg's evidence at bench's SE-iso hypers and its gradient groups
+    (log_ell, log_sf2, z), in X's dtype on X's device."""
+    k = SeIso(LOG_ELL, LOG_SF2, device=X.device, dtype=X.dtype)
+    z = leaf(Z, X.dtype, X.device)
+    ev = classify_ext_model(name, labels, block, grad_impl, count)(k, z, X)
+    return grads_of(ev, k, z)
+
+
+def ep_bound(n, d, m, sweeps) -> dict:
+    """EP's value and gradient, dense: per sweep the site Gram V'QV
+    (2 n m^2) and the marginals' triangular solve V R^-1 (n m^2); the
+    evidence's Gram and solve and their backward (9 n m^2), V = Knm U^-1
+    and its two backward products (6 n m^2), Knm and its pullback
+    (~4 n m d); X, y and z read, the evidence and the gradients written."""
+    flops = (3 * sweeps + 15) * n * m * m + 4.0 * n * m * d
+    return bound(flops, 4.0 * (n * (d + 1) + 2 * m * d + 2))
+
+
+def multi_bound(n, d, m, steps, n_c, block=None) -> dict:
+    """The softmax Laplace's value and gradient: per Newton step the C
+    per-class and C(C+1)/2 coupling Grams (2 n m^2 each); as many again at
+    the mode for the evidence, twice that for their backward and once for
+    the IFT backward's factors; V and its backward (6 n m^2), Knm and its
+    pullback (~4 n m d).  Streamed (``block``), each of a step's six sweeps
+    and the ~20 sweeps of the epilogue and the IFT backward recompute the
+    tile V (2 n m^2 + 2 n m d).  X, the labels and z read, the evidence and
+    the gradients written."""
+    grams = n_c + n_c * (n_c + 1) // 2
+    flops = 2.0 * grams * (steps + 4) * n * m * m + 6.0 * n * m * m \
+        + 4.0 * n * m * d
+    if block is not None:
+        flops += (6 * steps + 20) * (2.0 * n * m * m + 2.0 * n * m * d)
+    return bound(flops, 4.0 * (n * (d + 1) + 2 * m * d + 2))
+
+
+def classify_ext_vs_twin(tag, name, labels, X32, Z, block, dev, card,
+                         b) -> tuple:
+    """``vs_twin`` of a classify_ext leg, CLASSIFY_EXT_F32_NOT_HELD its
+    loose groups, timed (median of EXT_REPS) beside its bound ``b``."""
+    return vs_twin("classify_ext", tag,
+                   lambda lab, X, Z: classify_ext_value_and_grad(
+                       name, lab, X, Z, block), GROUPS, labels, X32, Z, dev,
+                   card, CLASSIFY_EXT_F32_NOT_HELD, EXT_REPS, b)
+
+
+def ep_trace(X32, labels, Z, card) -> None:
+    """The rms site-precision change of each of bench's EP_SWEEPS sweeps,
+    f32 at 1M rows (convergence shows as deltas that shrink)."""
+    k = SeIso(LOG_ELL, LOG_SF2, device=X32.device, dtype=X32.dtype)
+    with torch.no_grad():
+        _, v, d = _fitc_prior(k, torch.as_tensor(Z, device=X32.device), X32,
+                              JITTER)
+        y = labels.to(X32.dtype)
+        *_, deltas = ep_sweeps(v, d, y, torch.ones_like(y),
+                               n_sweeps=EP_SWEEPS, trace=True)
+    deltas = deltas.cpu().tolist()
+    log(f"classify_ext ep sweeps f32 at {X32.shape[0]} rows, rms site "
+        f"precision change by sweep: "
+        f"{', '.join(f'{x:.2e}' for x in deltas)} ({card})")
+    check("classify_ext ep trace", all(math.isfinite(x) for x in deltas)
+          and deltas[-1] < deltas[0], f"deltas {deltas}")
+
+
+def twin_errors(tag, what, ev, grads, twin, card) -> None:
+    errs = ", ".join(f"{g_name} {rel_norm(g, w):.2e}" for g_name, g, w in
+                     zip(GROUPS, grads, twin[1]))
+    log(f"classify_ext {tag}, {what}: evidence rel "
+        f"{(ev - twin[0]) / abs(twin[0]):+.2e}; grads {errs} ({card})")
+
+
+def multi_ablation(labels, X32, Z, twin, card) -> None:
+    """For information, not held: the dense multi-class leg in f32
+    throughout, the JAX package's choice (``ift.MODE_DTYPE`` f32: the
+    Newton steps, the IFT solve and the epilogue), against its f64 twin."""
+    kept = ift.MODE_DTYPE
+    ift.MODE_DTYPE = torch.float32
+    try:
+        ev, grads = classify_ext_value_and_grad("multi", labels, X32, Z)
+    finally:
+        ift.MODE_DTYPE = kept
+    twin_errors("ablation multi dense", "all in f32", ev, grads, twin, card)
+
+
+def ep_f64_on_f32(labels, X32, Z, twin, card) -> None:
+    """For information, not held: bench's EP leg with its sweeps and its
+    evidence in f64 on the f32 V and d (``classify.prior_up``; the
+    library runs them in the rows' dtype, as JAX does) against its f64
+    twin."""
+    k = SeIso(LOG_ELL, LOG_SF2, device=X32.device, dtype=X32.dtype)
+    z = leaf(Z, X32.dtype, X32.device)
+    _, v, d = prior_up(k, z, X32, JITTER)
+    y = labels.double()
+    mask = torch.ones_like(y)
+    with torch.no_grad():
+        ttau, tnu = ep_sweeps(v, d, y, mask, n_sweeps=EP_SWEEPS)
+    ev, grads = grads_of(ep_log_evidence_from_sites(v, d, y, mask, ttau,
+                                                    tnu).float(), k, z)
+    twin_errors("ep dense", "sweeps and evidence in f64 on the f32 V", ev,
+                grads, twin, card)
+
+
+def classify_ext_routes(X32, Z, labels, card) -> None:
+    """The gradient routes in f64 at LAPLACE_ROWS rows: EP "stationary" against
+    "unroll"; the dense multi-class "ift" against "unroll"; the streaming
+    multi-class (block 8,192) against the dense.  They agree at a fixed
+    point, so they are held with the sites and the mode converged
+    (EP_ROUTE_SWEEPS sweeps, MC_ROUTE_STEPS Newton steps): the evidence
+    within 1e-9 and each gradient group within 1e-6 (JAX's
+    tests/test_ift.py bound); at bench's EP_SWEEPS and MC_STEPS the first
+    two are printed for information (not held)."""
+    X = X32[:LAPLACE_ROWS].double()
+    cases = (("ep stationary vs unroll", "ep", labels["ep"], None,
+              "stationary", None, "unroll", (EP_SWEEPS, EP_ROUTE_SWEEPS)),
+             ("multi ift vs unroll", "multi", labels["multi"], None, "ift",
+              None, "unroll", (MC_STEPS, MC_ROUTE_STEPS)),
+             ("multi stream vs dense", "multi", labels["multi"], BLOCK,
+              "ift", None, "ift", (MC_ROUTE_STEPS,)))
+    for tag, name, lab, block_a, gi_a, block_b, gi_b, counts in cases:
+        lab = lab[:LAPLACE_ROWS]
+        for count in counts:
+            held = count == counts[-1]
+            t0 = time.perf_counter()
+            a = classify_ext_value_and_grad(name, lab, X, Z, block_a, gi_a,
+                                            count)
+            t1 = time.perf_counter()
+            b = classify_ext_value_and_grad(name, lab, X, Z, block_b, gi_b,
+                                            count)
+            t2 = time.perf_counter()
+            rel = abs(a[0] - b[0]) / abs(b[0])
+            if held:
+                check(f"classify_ext {tag} evidence", rel <= 1e-9,
+                      f"rel {rel:.3e}")
+            errs = []
+            for g_name, g, w in zip(GROUPS, a[1], b[1]):
+                err = rel_norm(g, w)
+                if held:
+                    check(f"classify_ext {tag} {g_name}", err <= 1e-6,
+                          f"rel {err:.3e}")
+                errs.append(f"{g_name} {err:.2e}")
+            log(f"classify_ext {tag} (f64, {LAPLACE_ROWS} rows, {count} "
+                f"{'sweeps' if name == 'ep' else 'steps'}"
+                f"{'' if held else ', not held'}): evidence {rel:.2e}; "
+                f"{', '.join(errs)}; {t1 - t0:.2f} s and {t2 - t1:.2f} s "
+                f"({card})")
+
+
+def classify_ext_fits(dev, card, X32, Z, labels) -> None:
+    """fit_classify_ep (on the labels sign(yf) of the fit phase's targets:
+    bench's EP labels are noise) and fit_classify_multi dense and streaming
+    (block 8,192; on the labels digitize(yf, MC_FIT_EDGES): bench's
+    multi-class labels are separable, which sends sf2 up, iteration after
+    iteration), bench's MC_STEPS Newton steps, EXT_FIT_ITERS iterations in
+    f32 on the first LAPLACE_ROWS rows from bench's hypers (z = Z), the
+    line search's curvature window 0.9: finite, and the mean NLL falls."""
+    X = X32[:LAPLACE_ROWS]
+    yf = bench_targets(dev, X32)[:LAPLACE_ROWS]
+    yc = torch.where(yf > 0, 1.0, -1.0)
+    lab = torch.as_tensor(np.digitize(yf.cpu().numpy(), MC_FIT_EDGES),
+                          dtype=torch.int64, device=dev)
+    z0 = torch.as_tensor(Z, device=dev)
+    for tag, block in (("ep", None), ("multi", None), ("multi stream", BLOCK)):
+        k = SeIso(LOG_ELL, LOG_SF2, device=dev, dtype=torch.float32)
+        pack = make_pack(k, z0, 1.0, learn_sigma2=False)
+        # tol: the curvature window of the Wolfe line search, L-BFGS's
+        # usual 0.9 (the default 0.1 took ~27 evaluations an iteration on
+        # the multi-class objective: 133 for 5 iterations)
+        kw = dict(max_iter=EXT_FIT_ITERS, jitter=JITTER, epsabs=1e-6,
+                  tol=0.9)
+        t0 = time.perf_counter()
+        if tag == "ep":
+            st = fit_classify_ep(X, yc, pack, n_sweeps=EP_SWEEPS, **kw)[-1]
+            fn = classify_ext_model("ep", yc)
+        else:
+            st = fit_classify_multi(X, lab, pack, MC_CLASSES,
+                                    newton_iters=MC_STEPS, block_size=block,
+                                    **kw)[-1]
+            fn = classify_ext_model("multi", lab, block)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with torch.no_grad():
+            f0 = -float(fn(k, z0, X)) / LAPLACE_ROWS
+        f1 = float(st.f)
+        log(f"classify_ext fit {tag}: {int(st.n_iter)} iterations, "
+            f"{int(st.n_evals)} evaluations in {secs:.2f} s "
+            f"({1e3 * secs / max(int(st.n_evals), 1):.1f} ms each); mean "
+            f"NLL {f0:.6f} -> {f1:.6f} ({card})")
+        check(f"classify_ext fit {tag}", math.isfinite(f1) and f1 < f0,
+              f"mean NLL {f0} -> {f1}")
+
+
+def classify_ext_predict(dev, card, X32, Z, labels) -> None:
+    """Trained on the first LAPLACE_ROWS rows, served at the next ones, f32:
+    ep_predict against ``ep_posterior_state`` through the standard
+    predictors (the latent means within 1e-5 and the variances within 1e-4,
+    relative: section 2's serving bounds; probabilities in (0, 1) within
+    1e-4: Phi's slope and the variances' bound); the dense multi-class state
+    (``multiclass_posterior_state``) against the streamed one
+    (``stream_multiclass_state``, block 8,192): mu, Sigma and the Monte
+    Carlo probabilities (1,024 draws of one generator seed) within 1e-5,
+    each row's probabilities summing to 1.  Then the dense state at the 1M
+    rows, timed once with its peak memory."""
+    X = X32[:LAPLACE_ROWS]
+    Xs = X32[LAPLACE_ROWS:2 * LAPLACE_ROWS]
+    k = SeIso(LOG_ELL, LOG_SF2, device=dev, dtype=torch.float32)
+    z = torch.as_tensor(Z, device=dev)
+    yc = labels["ep"][:LAPLACE_ROWS]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        p, mu, var = ep_predict(k, z, X, yc, Xs, n_sweeps=EP_SWEEPS,
+                                jitter=JITTER)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        inducing, coeffs, rn = ep_posterior_state(
+            k, z, X, yc, n_sweeps=EP_SWEEPS, jitter=JITTER)
+        mu_s = predict_means(k, MeanPredictor(z=inducing.z, coeffs=coeffs),
+                             Xs)
+        var_s = predict_variances(k, CoVariancePredictor(
+            z=inducing.z, chol_km=inducing.chol_km,
+            r_mat=rn @ inducing.chol_km), Xs, 0.0, predictive=False)
+        p_s = torch.special.ndtr(mu_s / torch.sqrt(1.0 + var_s.clamp(min=0)))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    diff = float(torch.max(torch.abs(p - p_s)))
+    inside = bool(((p > 0) & (p < 1)).all())
+    kept = ift.MODE_DTYPE
+    ift.MODE_DTYPE = torch.float32  # the JAX package's dtype, for information
+    try:
+        with torch.no_grad():
+            _, mu_32, var_32 = ep_predict(k, z, X, yc, Xs, n_sweeps=EP_SWEEPS,
+                                          jitter=JITTER)
+    finally:
+        ift.MODE_DTYPE = kept
+    log(f"classify_ext ep predict all in f32, for information: latent mean "
+        f"{rel_norm(mu_32, mu):.2e} and variance {rel_norm(var_32, var):.2e}"
+        f" from the library's (2-norm) ({card})")
+    log(f"classify_ext ep predict: {Xs.shape[0]} points, ep_predict "
+        f"{1e3 * (t1 - t0):.1f} ms, the state route {1e3 * (t2 - t1):.1f} "
+        f"ms; probabilities in (0, 1) {inside}, max |difference| "
+        f"{diff:.2e}, latent mean {rel_norm(mu_s, mu):.2e} and variance "
+        f"{rel_norm(var_s, var):.2e} relative (2-norm) ({card})")
+    e_mu, e_var = rel_norm(mu_s, mu), rel_norm(var_s, var)
+    check("classify_ext ep predict", inside and diff <= 1e-4
+          and e_mu <= 1e-5 and e_var <= 1e-4,
+          f"in (0, 1) {inside}, diff {diff:.3e}, mean {e_mu:.3e}, variance "
+          f"{e_var:.3e}")
+
+    lab = labels["multi"][:LAPLACE_ROWS]
+    out = {}
+    with torch.no_grad():
+        for route in ("dense", "stream"):
+            t0 = time.perf_counter()
+            if route == "dense":
+                state = multiclass_posterior_state(
+                    k, z, X, lab, MC_CLASSES, newton_iters=MC_STEPS,
+                    jitter=JITTER)
+            else:
+                state = stream_multiclass_state(
+                    k, z, X, lab, MC_CLASSES, block_size=BLOCK,
+                    newton_iters=MC_STEPS, jitter=JITTER)
+            pred = multiclass_predict_from_state(
+                k, state[0].z, *state[1:], Xs,
+                generator=torch.Generator(dev).manual_seed(0))
+            torch.cuda.synchronize()
+            out[route] = (state, pred, time.perf_counter() - t0)
+    (sd, pd, td), (ss, ps, ts) = out["dense"], out["stream"]
+    state_errs = ", ".join(f"{n} {rel_norm(a, b):.2e}" for n, a, b in zip(
+        ("coeffs", "a_tilde", "b_tilde"), ss[1:], sd[1:]))
+    errs = {n: float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+            for n, a, b in zip(("probs", "mu", "sigma"), ps, pd)}
+    sums = float(torch.max(torch.abs(pd[0].sum(dim=1) - 1.0)))
+    log(f"classify_ext multi predict: {Xs.shape[0]} points, dense state and "
+        f"serving {td:.2f} s, streaming {ts:.2f} s; streaming vs dense "
+        f"state {state_errs}; served "
+        f"{', '.join(f'{n} {e:.2e}' for n, e in errs.items())}; max |sum of "
+        f"probabilities - 1| {sums:.2e} ({card})")
+    check("classify_ext multi predict", all(e <= 1e-5 for e in errs.values())
+          and sums <= 1e-5, f"{errs}, sums {sums:.3e}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        state = multiclass_posterior_state(
+            k, z, X32, labels["multi"], MC_CLASSES, newton_iters=MC_STEPS,
+            jitter=JITTER)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    finite = all(bool(torch.isfinite(t).all()) for t in state[1:])
+    log(f"time classify_ext multi posterior state f32 at {X32.shape[0]} "
+        f"rows: {secs:.2f} s (once), peak memory {peak / 2**30:.2f} GiB "
+        f"above the data, finite {finite} ({card})")
+    check("classify_ext multi state 1M", finite, "a state entry not finite")
+
+
+def classify_ext_phase(dev, card: str, data) -> None:
+    """bench.py's EP leg (dense at 1M, f32 against the f64 twin, the trace of
+    its sweeps) and multi-class leg (dense at 1M, streaming at LAPLACE_ROWS),
+    each timed beside its bound; the gradient routes in f64; three fits;
+    the EP and multi-class predictions.  No kernel launches on any of
+    them."""
+    X32, y32, Z = data
+    t0 = time.perf_counter()
+    labels = {"ep": torch.sign(y32) + (y32 == 0).to(torch.float32),
+              "multi": multi_labels(X32)}
+    counts = torch.bincount(labels["multi"], minlength=MC_CLASSES).tolist()
+    b_ep = ep_bound(N, D, M, EP_SWEEPS)
+    b_mc = multi_bound(N, D, M, MC_STEPS, MC_CLASSES)
+    b_ms = multi_bound(LAPLACE_ROWS, D, M, MC_STEPS, MC_CLASSES, BLOCK)
+    log(f"classify_ext bounds: bench's EP leg {b_ep['bound_ms']:.3f} ms "
+        f"({b_ep['bound_by']}), multi-class dense {b_mc['bound_ms']:.3f} ms "
+        f"({b_mc['bound_by']}), streaming at {LAPLACE_ROWS} rows "
+        f"{b_ms['bound_ms']:.3f} ms ({b_ms['bound_by']}); class counts "
+        f"{counts}")
+
+    ep_trace(X32, labels["ep"], Z, card)
+    twin = classify_ext_vs_twin("ep dense", "ep", labels["ep"], X32, Z, None,
+                                dev, card, b_ep)
+    ep_f64_on_f32(labels["ep"], X32, Z, twin, card)
+    twin = classify_ext_vs_twin("multi dense", "multi", labels["multi"], X32,
+                                Z, None, dev, card, b_mc)
+    multi_ablation(labels["multi"], X32, Z, twin, card)
+    classify_ext_vs_twin(f"multi stream {LAPLACE_ROWS}", "multi",
+                         labels["multi"][:LAPLACE_ROWS], X32[:LAPLACE_ROWS], Z,
+                         BLOCK, dev, card, b_ms)
+    _, launches = counted("classify_ext routes, fits and predictions",
+                          lambda: (classify_ext_routes(X32, Z, labels, card),
+                                   classify_ext_fits(dev, card, X32, Z,
+                                                     labels),
+                                   classify_ext_predict(dev, card, X32, Z,
+                                                        labels)), ())
+    check("classify_ext launches", not any(launches.values()),
+          f"{launches}, want all 0")
+    log(f"classify_ext phase: {time.perf_counter() - t0:.1f} s ({card})")
+
+
 # -- cli: the command-line trainer/predictor in subprocesses
 CLI_TRAIN, CLI_TEST = 200_000, 100_000  # rows of bench's draw
 CLI_COMMON = ("-n-inducing", "300", "-dim-red", "8", "-log-het-sked", "-5",
@@ -3003,6 +3451,10 @@ CLI_LAPLACE = {
     "binomial": ("binomial", ("-binomial",)),
     "negbin": ("negbin", ("-negbin", "2")),
     "ordinal": ("ordinal", ("-ordinal",)),
+    "classify-ep": ("classify", ("-classify", "-approx", "ep")),
+    "classify-multi": ("multi", ("-classify",)),
+    "classify-multi-stream": ("multi", ("-classify", "-block-size",
+                                        "16384")),
 }
 
 
@@ -3096,13 +3548,22 @@ def library_means(art, extra, kernel, z, xs) -> np.ndarray:
         .cpu().numpy()
 
 
-def cli_serve(tmp, tag, model, csv, dev, card) -> None:
-    """-cmd test -with-stddev of ``model`` on ``csv``: CLI_TEST finite lines
-    with positive standard deviations, whose means equal the library's
-    (``library_means``) as printed."""
+def cli_serve(tmp, runs, dev, card) -> None:
+    """-cmd test -with-stddev of each (tag, model, csv) of ``runs``, the
+    processes side by side on the card, then each checked
+    (``cli_check_means``)."""
+    served = cli_side_by_side(tmp, [
+        (f"test-{tag}", ("-cmd", "test", "-model", model, "-with-stddev"),
+         csv) for tag, model, csv in runs])
+    for (tag, model, csv), (secs, out, _) in zip(runs, served):
+        cli_check_means(tag, model, csv, secs, out, dev, card)
+
+
+def cli_check_means(tag, model, csv, secs, out, dev, card) -> None:
+    """What -cmd test -with-stddev printed for ``model`` on ``csv``:
+    CLI_TEST finite lines with positive standard deviations, whose means
+    equal the library's (``library_means``) as printed."""
     xs_raw = torch.as_tensor(native.load_csv_file(csv), device=dev)
-    secs, out, _ = cli_run(tmp, f"test-{tag}", (
-        "-cmd", "test", "-model", model, "-with-stddev"), csv)
     lines = Path(out).read_text().splitlines()
     vals = np.array([[float(v) for v in line.split(",")] for line in lines])
     art, kernel, z, _ = cli_artifact(model, dev)
@@ -3128,6 +3589,8 @@ def laplace_csv_columns(name, labels, rows, yf) -> list:
     else the laplace phase's labels (binomial: trials, then successes)."""
     if name == "classify":
         return [(yf[:rows] > 0).double().cpu().numpy()]
+    if name == "multi":
+        return [labels[name][:rows].double().cpu().numpy()]
     got = labels[name]
     if name == "binomial":
         return [got[1][:rows].cpu().numpy(), got[0][:rows].cpu().numpy()]
@@ -3138,11 +3601,24 @@ def library_laplace(art, extra, kernel, z, xs) -> list[str]:
     """What -cmd test prints before its standard-deviation column for a
     Laplace artifact, from the library: the latent posterior of the
     artifact's state through ``predict_means``/``predict_variances``, then
-    the model's own link (``mackay_squash``, the lognormal rate or count
-    mean, ``cell_probs``)."""
+    the model's own link (``mackay_squash``, EP's exact probit predictive,
+    the lognormal rate or count mean, ``cell_probs``).  A multi-class
+    artifact's whole line: ``multiclass_predict_from_state`` with 2,048
+    draws of ``torch.Generator(...).manual_seed(0)``, then its C latent
+    standard deviations."""
     dev = xs.device
     t = {k: torch.as_tensor(getattr(art, k), device=dev)
          for k in ("coeffs", "chol_km", "r_mat")}
+    if "mc_a_tilde" in extra:
+        probs, _, sigma = multiclass_predict_from_state(
+            kernel, z, t["coeffs"],
+            *(torch.as_tensor(extra[k], device=dev)
+              for k in ("mc_a_tilde", "mc_b_tilde")), xs, n_samples=2048,
+            generator=torch.Generator(dev).manual_seed(0))
+        sd = torch.sqrt(torch.clamp(torch.diagonal(sigma, dim1=1, dim2=2),
+                                    min=0.0))
+        return [",".join(f"{v:f}" for v in row) for row in
+                torch.cat([probs, sd], dim=1).cpu().numpy()]
     mu = predict_means(kernel, MeanPredictor(z=z, coeffs=t["coeffs"]), xs)
     var = predict_variances(kernel, CoVariancePredictor(
         z=z, chol_km=t["chol_km"], r_mat=t["r_mat"]), xs, 0.0,
@@ -3152,6 +3628,9 @@ def library_laplace(art, extra, kernel, z, xs) -> list[str]:
                           mu, torch.clamp(var, min=1e-12))
     elif "poisson" in extra or "negbin" in extra:
         cols = torch.exp(mu + 0.5 * torch.clamp(var, min=0.0))[:, None]
+    elif "ep" in extra:
+        cols = torch.special.ndtr(
+            mu / torch.sqrt(1.0 + torch.clamp(var, min=0.0)))[:, None]
     else:
         cols = mackay_squash(mu, torch.clamp(var, min=0.0))[:, None]
     return [",".join(f"{v:f}" for v in row) for row in cols.cpu().numpy()]
@@ -3160,8 +3639,9 @@ def library_laplace(art, extra, kernel, z, xs) -> list[str]:
 def cli_check_laplace(tag, model, csv, secs, out, dev, card) -> None:
     """What -cmd test -with-stddev printed for a Laplace artifact: CLI_TEST
     finite lines, probabilities in [0, 1], positive standard deviations,
-    and every line but its last column equal to the library's
-    (``library_laplace``)."""
+    and every line but its last column (a multi-class artifact's whole
+    line: C probabilities and C standard deviations) equal to the
+    library's (``library_laplace``)."""
     xs_raw = torch.as_tensor(native.load_csv_file(csv), device=dev)
     lines = Path(out).read_text().splitlines()
     vals = np.array([[float(v) for v in line.split(",")] for line in lines])
@@ -3171,10 +3651,13 @@ def cli_check_laplace(tag, model, csv, secs, out, dev, card) -> None:
         torch.as_tensor(art.input_stddevs, device=dev)
     with torch.no_grad():
         want = library_laplace(art, extra, kernel, z, xs)
-    same = sum(line.rsplit(",", 1)[0] == w for line, w in zip(lines, want))
+    multi = "mc_a_tilde" in extra
+    same = sum((line if multi else line.rsplit(",", 1)[0]) == w
+               for line, w in zip(lines, want))
     probs = "poisson" not in extra and "negbin" not in extra
-    in_unit = (not probs) or bool(((vals[:, :-1] >= 0)
-                                   & (vals[:, :-1] <= 1)).all())
+    p_cols = int(extra["classify"]) if multi else -1
+    in_unit = (not probs) or bool(((vals[:, :p_cols] >= 0)
+                                   & (vals[:, :p_cols] <= 1)).all())
     log(f"cli test {tag}: {secs:.2f} s wall; {len(lines)} lines of "
         f"{vals.shape[1] if vals.ndim == 2 else 0} columns, finite "
         f"{bool(np.isfinite(vals).all())}, stddev > 0 "
@@ -3211,9 +3694,11 @@ def cli_side_by_side(tmp, runs) -> list:
 
 def cli_laplace_legs(tmp, dev, card, data, Xtr, test_csv) -> None:
     """The Laplace modes (CLI_LAPLACE), each trained on the laplace phase's
-    labels of the training rows and served on the test rows; the six
-    trainings run side by side, then the six tests."""
+    labels of the training rows (the multi-class modes on bench's
+    multi-class labels) and served on the test rows; the nine trainings run
+    side by side, then the nine tests."""
     labels = laplace_data(dev, data[0], data[1])
+    labels["multi"] = multi_labels(data[0][:Xtr.shape[0]])
     yf = bench_targets(dev, data[0])
     runs, models = [], []
     for tag, (name, flags) in CLI_LAPLACE.items():
@@ -3311,43 +3796,52 @@ def cli_phase(dev, card: str, data) -> None:
         log(f"cli start-up: {secs:.2f} s wall for -cmd test on one row "
             f"({card})")
 
-        # a base family other than se_fat, the spectral mixture (its
-        # keyless init from the data's spectrum) and the ICM model through
-        # the device trainer
-        matern, _ = train("matern52", *CLI_FAMILY, *CLI_DEVICE, "-max-iter",
-                          "5")
-        sm2, _ = train("sm2", *CLI_SM2, *CLI_DEVICE, "-max-iter", "5")
-        icm, err = train("icm", *CLI_ICM, *CLI_DEVICE, "-max-iter", "5",
-                         csv=icm_csv, x=Xtr_icm)
-        B = cli_coregionalization(err)
-        log(f"cli icm coregionalization B: "
-            f"{np.array2string(B, precision=4, separator=', ')} ({card})")
-        check("cli icm B", B.shape == (ICM_TASKS, ICM_TASKS)
-              and bool(np.isfinite(B).all()), f"B of shape {B.shape}")
-
-        # the Gaussian-likelihood extensions, -exact on the first
-        # EXACT_ROWS training rows
+        # side by side: a base family other than se_fat, the spectral
+        # mixture (its keyless init from the data's spectrum) and the ICM
+        # model through the device trainer, and the Gaussian-likelihood
+        # extensions, -exact on the first EXACT_ROWS training rows
         exact_csv = f"{tmp}/train_exact.csv"
         np.savetxt(exact_csv, np.column_stack([
             Xtr[:EXACT_ROWS].cpu().numpy(), ytr[:EXACT_ROWS].cpu().numpy()]),
             fmt="%.9g", delimiter=",")
+        fam_runs = (
+            ("matern52", (*CLI_FAMILY, *CLI_DEVICE), train_csv, Xtr),
+            ("sm2", (*CLI_SM2, *CLI_DEVICE), train_csv, Xtr),
+            ("icm", (*CLI_ICM, *CLI_DEVICE), icm_csv, Xtr_icm))
+        ext_runs = tuple((tag, flags, exact_csv if "-exact" in flags
+                          else train_csv) for tag, flags in CLI_EXT.items())
+        t1 = time.perf_counter()
+        trained = cli_side_by_side(tmp, [
+            (tag, ("-cmd", "train", "-model", f"{tmp}/{tag}.npz", *flags,
+                   *(("-max-iter", "5") if x is not None else ())), csv)
+            for tag, flags, csv, x in (*fam_runs, *((*r, None)
+                                                    for r in ext_runs))])
+        log(f"cli trainings: {len(trained)} side by side in "
+            f"{time.perf_counter() - t1:.2f} s ({card})")
+        for (tag, _, _, x), (secs, _, err) in zip(fam_runs, trained):
+            cli_report(tag, secs, err, f"{tmp}/{tag}.npz", dev, x, ytr,
+                       card)
+        matern, sm2, icm = (f"{tmp}/{tag}.npz" for tag, *_ in fam_runs)
+        B = cli_coregionalization(trained[2][2])
+        log(f"cli icm coregionalization B: "
+            f"{np.array2string(B, precision=4, separator=', ')} ({card})")
+        check("cli icm B", B.shape == (ICM_TASKS, ICM_TASKS)
+              and bool(np.isfinite(B).all()), f"B of shape {B.shape}")
         ext_models = []
-        for tag, flags in CLI_EXT.items():
-            model = f"{tmp}/{tag}.npz"
-            secs, _, err = cli_run(tmp, tag, ("-cmd", "train", "-model",
-                                              model, *flags),
-                                   exact_csv if "-exact" in flags
-                                   else train_csv)
+        for (tag, _, _), (secs, _, err) in zip(ext_runs,
+                                               trained[len(fam_runs):]):
             cli_ext_report(tag, secs, err, card)
-            ext_models.append((tag, model, test_csv))
+            ext_models.append((tag, f"{tmp}/{tag}.npz", test_csv))
 
         cli_laplace_legs(tmp, dev, card, data, Xtr, test_csv)
-        for tag, model, csv in (("host", host, test_csv),
-                                ("device-resumed", resumed, test_csv),
-                                ("matern52", matern, test_csv),
-                                ("sm2", sm2, test_csv),
-                                ("icm", icm, icm_test_csv), *ext_models):
-            cli_serve(tmp, tag, model, csv, dev, card)
+        t1 = time.perf_counter()
+        cli_serve(tmp, (("host", host, test_csv),
+                        ("device-resumed", resumed, test_csv),
+                        ("matern52", matern, test_csv),
+                        ("sm2", sm2, test_csv),
+                        ("icm", icm, icm_test_csv), *ext_models), dev, card)
+        log(f"cli tests: {len(ext_models) + 5} side by side in "
+            f"{time.perf_counter() - t1:.2f} s ({card})")
     log(f"cli phase: {time.perf_counter() - t0:.2f} s ({card})")
 
 
@@ -3371,6 +3865,7 @@ def main() -> int:
     hetero_phase(dev, card, data)
     gaussian_ext_phase(dev, card, data)
     laplace_phase(dev, card, data)
+    classify_ext_phase(dev, card, data)
     cli_phase(dev, card, data)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

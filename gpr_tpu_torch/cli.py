@@ -31,13 +31,15 @@ rows) or with the integer that seeds the JAX package's key (cosine's
 default frequencies): these draws differ from the JAX package's.
 
 The Laplace likelihoods (``-classify`` with binary labels, ``-poisson``,
-``-binomial``, ``-negbin R0``, ``-ordinal``) train with ``-trainer
-device`` and write the regression artifact's schema with the mode's
-extras; ``-cmd test`` serves their probabilities, rates or counts.  Flags
-of modules that are not ported yet (``-cg``, ``-approx ep``, multi-class
-``-classify``, ``-trainer sharded`` and ``-devices``) pass the JAX
-package's flag and data checks in its order, then exit naming their
-ROADMAP.md item.
+``-binomial``, ``-negbin R0``, ``-ordinal``), binary EP (``-classify
+-approx ep``) and the softmax Laplace (``-classify`` with integer labels
+0..C-1, C >= 3) train with ``-trainer device`` and write the regression
+artifact's schema with the mode's extras (the multi-class model's m-space
+state in ``mc_a_tilde``/``mc_b_tilde``); ``-cmd test`` serves their
+probabilities, rates or counts.  Flags of modules that are not ported yet
+(``-cg``, ``-trainer sharded`` and ``-devices``) pass the JAX package's
+flag and data checks in its order, then exit naming their ROADMAP.md
+item.
 
 Run: ``python3 -m gpr_tpu_torch.cli -cmd train -model m.npz < train.csv``,
 then ``python3 -m gpr_tpu_torch.cli -cmd test -model m.npz < test.csv``.
@@ -62,9 +64,8 @@ _NOT_PORTED = (
     ("devices", "-devices", 13),
 )
 #: artifact extras of the models that are not ported yet, in the JAX
-#: package's order of dispatch, and their ROADMAP.md queue 1 items (a
-#: "classify" extra above 2 is the multi-class model's, item 11 too)
-_NOT_PORTED_EXTRAS = (("ep", 11), ("exact_cg", 10))
+#: package's order of dispatch, and their ROADMAP.md queue 1 items
+_NOT_PORTED_EXTRAS = (("exact_cg", 10),)
 
 
 def _not_ported(what: str, item: int):
@@ -506,7 +507,7 @@ def _check_labels(args, targets, trials, n):
     n_classes = 2
     if args.classify:
         # 0/1 or -1/+1 select the binary Laplace; integer labels 0..C-1
-        # with C >= 3 the softmax Laplace (not ported)
+        # with C >= 3 the softmax Laplace
         uniq_arr = np.unique(targets)
         uniq = set(uniq_arr.tolist())
         if uniq <= {0.0, 1.0}:
@@ -600,18 +601,13 @@ def _check_labels(args, targets, trials, n):
     return targets, n_classes, target_mean
 
 
-def _refuse_not_ported(args, n_classes=2):
+def _refuse_not_ported(args):
     """Exit naming the ROADMAP.md item of the first flag whose module is
     not ported yet."""
     for attr, flag, item in _NOT_PORTED:
         value = getattr(args, attr)
         if value is not None and value is not False:
             raise _not_ported(flag, item)
-    if args.classify and n_classes > 2:
-        raise _not_ported(f"-classify with {n_classes} classes (the "
-                          "multi-class softmax Laplace)", 11)
-    if args.classify and args.approx == "ep":
-        raise _not_ported("-classify -approx ep", 11)
     if args.trainer == "sharded":
         raise _not_ported("-trainer sharded", 13)
 
@@ -671,12 +667,13 @@ def cmd_train(args, dev) -> int:
                          "(device-sharded state is mesh-layout dependent)")
     if args.devices is not None and args.trainer != "sharded":
         raise SystemExit("-devices requires -trainer sharded")
-    _refuse_not_ported(args, n_classes)
+    _refuse_not_ported(args)
 
     log_sf2 = 2.0 * math.log(args.amplitude)
     X = torch.tensor(inputs, dtype=F64, device=dev)
-    # ordinal categories are integer labels
-    y = (torch.tensor(targets.astype(np.int64), device=dev) if args.ordinal
+    # ordinal categories and multi-class labels are integers
+    y = (torch.tensor(targets.astype(np.int64), device=dev)
+         if args.ordinal or (args.classify and n_classes > 2)
          else torch.tensor(targets, dtype=F64, device=dev))
     trials_t = (torch.tensor(trials, dtype=F64, device=dev)
                 if trials is not None else None)
@@ -1044,6 +1041,12 @@ def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
         streaming with -block-size); coeffs = U^-1 V'a and r_mat = Rn U
         serve the latent posterior through the standard predictors, and
         -cmd test applies the mode's squash or moments;
+      * -classify -approx ep: binary EP (``models/classify_ep.py``,
+        dense), its state in the same slots, served with the exact probit
+        predictive; -classify with C >= 3 classes: the softmax Laplace
+        (``models/classify_multi.py``, or ``classify_multi_stream.py``
+        with -block-size), its (m, C) coeffs and the per-class quadratic
+        forms in the extras;
       * -student-t NU: ``models.robust.fit_t`` (5 EM rounds);
       * -warp K: ``models.warped.fit_warped`` (variational, streaming);
         -cmd test integrates the inverse warp by Gauss-Hermite quadrature;
@@ -1054,6 +1057,8 @@ def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
     -resume follow the device trainer's rules (not with -student-t)."""
     from .models.binomial import fit_binomial
     from .models.classify import fit_classify
+    from .models.classify_ep import fit_classify_ep
+    from .models.classify_multi import fit_classify_multi
     from .models.negbin import fit_negbin
     from .models.ordinal import default_cutpoint_raw, fit_ordinal
     from .models.pitc import pitc_log_evidence
@@ -1113,7 +1118,13 @@ def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
         if args.classify or args.poisson or args.binomial:
             pack = make_pack(params0, z0, 1.0, learn_sigma2=False)
             init = load_resume_state(pack.x0)
-            if args.classify:
+            if args.classify and n_classes > 2:
+                p, z, st = fit_classify_multi(X, y, pack, n_classes,
+                                              init_state=init, **laplace)
+            elif args.classify and args.approx == "ep":
+                p, z, st = fit_classify_ep(X, y, pack, init_state=init,
+                                           **common)
+            elif args.classify:
                 p, z, st = fit_classify(X, y, pack, init_state=init,
                                         **laplace)
             elif args.poisson:
@@ -1296,6 +1307,39 @@ def _laplace_artifact(args, p, z, s2, cut_raw, X, y, trials):
             matmul(rn, inducing.chol_km), extra)
 
 
+def _classify_ext_artifact(args, p, z, X, y, n_classes):
+    """(inducing z, coeffs, chol_km, r_mat, extras) of the multi-class and
+    the EP classifiers, as the JAX package writes them.  Multi-class: the
+    softmax Laplace's m-space state (dense, or streamed by -block-size),
+    coeffs (m, C), the per-class quadratic forms in ``mc_a_tilde`` and
+    ``mc_b_tilde`` (r_mat = chol_km, unused by its serving); EP: coeffs and
+    r_mat = R U of ``ep_posterior_state`` (the probit predictive's state in
+    the standard predictor's slots)."""
+    from .numerics.linalg import matmul
+
+    if n_classes > 2:
+        if args.block_size:
+            from .models.classify_multi_stream import stream_multiclass_state
+
+            inducing, coeffs, a_tilde, b_tilde = stream_multiclass_state(
+                p, z, X, y, n_classes, block_size=args.block_size)
+        else:
+            from .models.classify_multi import multiclass_posterior_state
+
+            inducing, coeffs, a_tilde, b_tilde = multiclass_posterior_state(
+                p, z, X, y, n_classes)
+        return (inducing.z, coeffs, inducing.chol_km, inducing.chol_km, {
+            "classify": np.asarray(n_classes),
+            "mc_a_tilde": a_tilde.cpu().numpy(),
+            "mc_b_tilde": b_tilde.cpu().numpy()})
+    from .models.classify_ep import ep_posterior_state
+
+    inducing, coeffs, rn = ep_posterior_state(p, z, X, y)
+    return (inducing.z, coeffs, inducing.chol_km,
+            matmul(rn, inducing.chol_km),
+            {"classify": np.asarray(2), "ep": np.asarray(1)})
+
+
 @torch.no_grad()
 def _write_extension_artifact(args, fam, result, X, y, target_mean,
                               input_means, input_stddevs, block_size,
@@ -1312,7 +1356,11 @@ def _write_extension_artifact(args, fam, result, X, y, target_mean,
     )
 
     p, z, s2, wp = result
-    if (args.classify or args.poisson or args.binomial or args.ordinal
+    if args.classify and (n_classes > 2 or args.approx == "ep"):
+        z, coeffs, chol_km, r_mat, extra = _classify_ext_artifact(
+            args, p, z, X, y, n_classes)
+        sigma2 = 0.0
+    elif (args.classify or args.poisson or args.binomial or args.ordinal
             or args.negbin is not None):
         coeffs, chol_km, r_mat, extra = _laplace_artifact(
             args, p, z, s2, wp, X, y, trials)
@@ -1454,8 +1502,6 @@ def cmd_test(args, dev) -> int:
             f"incompatible dimension of inputs ({data.shape[1]}), expected "
             f"{big_dim}"
         )
-    if "classify" in extra and int(extra["classify"]) > 2:
-        raise _not_ported("serving a multi-class classify artifact", 11)
     for key, item in _NOT_PORTED_EXTRAS:
         if key in extra:
             raise _not_ported(f"serving a {key} artifact", item)
@@ -1469,6 +1515,11 @@ def cmd_test(args, dev) -> int:
     mp = MeanPredictor(z=z, coeffs=t(art.coeffs))
     cvp = CoVariancePredictor(z=z, chol_km=t(art.chol_km),
                               r_mat=t(art.r_mat))
+    if "classify" in extra and int(extra["classify"]) > 2:
+        # the softmax Laplace's artifact, before the binary squash below
+        sys.stdout.write(serve_multiclass(kernel, z, art, extra, X,
+                                          args.with_stddev))
+        return 0
     if any(key in extra for key in LAPLACE_EXTRAS):
         with torch.no_grad():
             mu = predict_means(kernel, mp, X).cpu().numpy()
@@ -1523,8 +1574,9 @@ def serve_laplace(extra, mu, var, with_stddev=False) -> str:
     lognormal rate moments (poisson), the NB law of total variance with
     the learned dispersion (negbin), the exact Gaussian integrals of the
     probit cells, one column a category (ordinal), or MacKay's probit
-    squash of the logit (classify, binomial); -with-stddev adds the rate's,
-    the count's or the latent's standard deviation."""
+    squash of the logit (classify, binomial) or, for an EP artifact, the
+    exact probit predictive Phi(mu / sqrt(1 + var)); -with-stddev adds the
+    rate's, the count's or the latent's standard deviation."""
     if "poisson" in extra or "negbin" in extra:
         var = np.maximum(var, 0.0)
         if "poisson" in extra:
@@ -1558,11 +1610,50 @@ def serve_laplace(extra, mu, var, with_stddev=False) -> str:
             lines.append(",".join(cols) + "\n")
         return "".join(lines)
     var = np.maximum(var, 0.0)
-    prob = 1.0 / (1.0 + np.exp(-mu / np.sqrt(1.0 + np.pi * var / 8.0)))
+    if "ep" in extra:
+        from scipy.special import ndtr
+
+        prob = ndtr(mu / np.sqrt(1.0 + var))
+    else:
+        prob = 1.0 / (1.0 + np.exp(-mu / np.sqrt(1.0 + np.pi * var / 8.0)))
     if with_stddev:
         return "".join(f"{p:f},{math.sqrt(v):f}\n"
                        for p, v in zip(prob, var))
     return "".join(f"{p:f}\n" for p in prob)
+
+
+#: Monte Carlo draws of a multi-class artifact's class probabilities
+MC_SERVE_SAMPLES = 2048
+
+
+@torch.no_grad()
+def serve_multiclass(kernel, z, art, extra, X, with_stddev=False) -> str:
+    """The text -cmd test prints for a multi-class artifact at X (on the
+    device): one probability column a class, the Monte Carlo softmax
+    average of ``multiclass_predict_from_state`` over MC_SERVE_SAMPLES
+    draws from ``torch.Generator(X.device).manual_seed(0)`` (the JAX
+    package draws from its own key 0, so the columns agree with its to
+    Monte Carlo error), then with -with-stddev the C latent standard
+    deviations (equal to the JAX package's)."""
+    from .models.classify_multi import multiclass_predict_from_state
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=F64, device=X.device)
+
+    probs, _, sigma = multiclass_predict_from_state(
+        kernel, z, t(art.coeffs), t(extra["mc_a_tilde"]),
+        t(extra["mc_b_tilde"]), X, n_samples=MC_SERVE_SAMPLES,
+        generator=torch.Generator(X.device).manual_seed(0))
+    probs = probs.cpu().numpy()
+    sd = np.sqrt(np.maximum(np.diagonal(sigma.cpu().numpy(), axis1=1,
+                                        axis2=2), 0.0))
+    lines = []
+    for p_row, s_row in zip(probs, sd):
+        cols = [f"{v:f}" for v in p_row]
+        if with_stddev:
+            cols += [f"{v:f}" for v in s_row]
+        lines.append(",".join(cols) + "\n")
+    return "".join(lines)
 
 
 def _write_predictions(means, variances=None):

@@ -12,6 +12,31 @@ from .classify import (
     laplace_mode,
     newton_scan,
 )
+from .classify_ep import (
+    ep_log_evidence,
+    ep_log_evidence_from_sites,
+    ep_posterior_state,
+    ep_predict,
+    ep_sweeps,
+    fit_classify_ep,
+)
+from .classify_multi import (
+    SoftmaxFixedPoint,
+    fit_classify_multi,
+    mc_softmax_probs,
+    multiclass_log_evidence,
+    multiclass_posterior_state,
+    multiclass_predict,
+    multiclass_predict_from_state,
+    softmax_newton_scan,
+)
+from .classify_multi_stream import (
+    StreamSoftmaxFixedPoint,
+    stream_multiclass_log_evidence,
+    stream_multiclass_parts,
+    stream_multiclass_predict,
+    stream_multiclass_state,
+)
 from .classify_stream import (
     newton_scan_stream,
     stream_classify_log_evidence,

@@ -43,6 +43,7 @@ from .ift import (
     laplace_evidence_core,
     newton_scan_generic,
     tmatmul,
+    up,
 )
 
 
@@ -55,6 +56,15 @@ def _fitc_prior(kernel, z, X, jitter=None, d_floor=1e-8):
     v = matmul(knm, u_inv)
     d = kernel.k_diag(X) - rows_sqr_norm(v)
     return inducing, v, torch.maximum(d, d.new_tensor(d_floor))
+
+
+def prior_up(kernel, z, X, jitter=None):
+    """``_fitc_prior`` with V and d cast to ``ift.MODE_DTYPE`` (casts
+    autograd differentiates): the prior of the softmax Laplace, whose
+    Newton steps and m-space algebra run in f64 on the rows' V, and of
+    EP's predictor."""
+    inducing, v, d = _fitc_prior(kernel, z, X, jitter)
+    return inducing, up(v), up(d)
 
 
 def log_sigmoid(t):

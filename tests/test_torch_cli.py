@@ -8,9 +8,10 @@ device`` (dense and streaming), ``-restarts``, ``-polish`` and the sparse
 ``-loo``; ``-cmd test`` prints the same text whichever package wrote the
 artifact and whichever serves it; ``-checkpoint``/``-resume`` lands
 bit-equal on the uninterrupted run; bad command lines get the JAX
-package's messages and the flags of modules not ported yet (-cg, -approx
-ep, multi-class -classify, -trainer sharded) exit naming their ROADMAP.md
-item.  The Laplace modes: ``test_torch_cli_laplace.py``.  The port's CSV binding is held against the JAX
+package's messages and the flags of modules not ported yet (-cg,
+-trainer sharded) exit naming their ROADMAP.md item.  The Laplace modes:
+``test_torch_cli_laplace.py``; EP and multi-class:
+``test_torch_cli_classify.py``.  The port's CSV binding is held against the JAX
 package's, and one real process runs ``python -m gpr_tpu_torch.cli``.
 """
 
@@ -408,22 +409,16 @@ def test_test_messages(data, tmp_path):
 
 NOT_PORTED = {
     "-cg": (["-exact", "-cg"], 10),
-    # the CSV's targets 1 and 2 are three classes to -classify
-    "multi-class -classify": (["-classify", "-trainer", "device"], 11),
-    "-approx ep": (["-classify", "-approx", "ep", "-trainer", "device"], 11),
     "-trainer sharded": (["-trainer", "sharded"], 13),
     "-devices": (["-trainer", "sharded", "-devices", "2"], 13),
 }
-# cases whose flags need other targets: binary labels for -approx ep
-BINARY_TARGETS = {"-approx ep"}
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_not_ported_flags(case, tmp_path):
     flags, item = NOT_PORTED[case]
     # a task-id column and integer targets that every flag accepts
-    shift = 0 if case in BINARY_TARGETS else 1
-    csv = "".join(f"{i * 0.1:.1f},{i % 2},{i % 2 + shift}\n"
+    csv = "".join(f"{i * 0.1:.1f},{i % 2},{i % 2 + 1}\n"
                   for i in range(20))
     rc, out, err = run("torch", ["-cmd", "train", "-model",
                                  str(tmp_path / "m.npz"), *flags], csv)
@@ -433,17 +428,15 @@ def test_not_ported_flags(case, tmp_path):
 
 
 def test_extension_artifact_not_served(data, tmp_path):
-    """The artifacts of the EP and the multi-class classifiers."""
+    """The artifact of the iterative exact GP (-exact -cg)."""
     csv, test_csv = data
     _train("torch", tmp_path / "m.npz", SE_FAT + BASE, csv)
     art, _ = tckpt.load_model(str(tmp_path / "m.npz"))
-    for name, extra in (("ep", {"classify": np.asarray(2),
-                                "ep": np.asarray(1)}),
-                        ("multi-class", {"classify": np.asarray(3)})):
-        tckpt.save_model(str(tmp_path / "p.npz"), art, extra_arrays=extra)
-        rc, out, err = run("torch", ["-cmd", "test", "-model",
-                                     str(tmp_path / "p.npz")], test_csv)
-        assert rc == 1 and out == "" and name in err and "item 11" in err
+    tckpt.save_model(str(tmp_path / "p.npz"), art,
+                     extra_arrays={"exact_cg": np.asarray(1)})
+    rc, out, err = run("torch", ["-cmd", "test", "-model",
+                                 str(tmp_path / "p.npz")], test_csv)
+    assert rc == 1 and out == "" and "exact_cg" in err and "item 10" in err
 
 
 def test_no_gpu_no_fallback(monkeypatch, tmp_path):

@@ -8,8 +8,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent / "gpr_tpu_torch"
 # modules of the training leg, the roofline path, the Quick-start path, the
 # command-line path, the base kernel families, the Gaussian-likelihood
-# extensions and the Laplace likelihoods, named so that a move or a
-# rename cannot drop them from the scan unnoticed
+# extensions, the Laplace likelihoods, EP and the softmax Laplace, named so
+# that a move or a rename cannot drop them from the scan unnoticed
 NEWER = ("models/fitc.py", "optim/lbfgs.py", "optim/train.py",
          "optim/polish.py", "ops/gemm_chain.py", "datasets.py",
          "models/predict.py", "models/stats.py", "models/sample.py",
@@ -22,7 +22,8 @@ NEWER = ("models/fitc.py", "optim/lbfgs.py", "optim/train.py",
          "models/exact.py", "models/multitask.py", "models/ift.py",
          "models/classify.py", "models/classify_stream.py",
          "models/poisson.py", "models/binomial.py", "models/negbin.py",
-         "models/ordinal.py")
+         "models/ordinal.py", "models/classify_ep.py",
+         "models/classify_multi.py", "models/classify_multi_stream.py")
 
 
 def _jax_imports(path):
@@ -80,6 +81,10 @@ def test_import_loads_no_jax():
         "from gpr_tpu_torch.models import (fit_classify, fit_poisson, "
         "fit_binomial, fit_negbin, stream_classify_log_evidence)\n"
         "from gpr_tpu_torch.optim import extend_pack\n"
+        "from gpr_tpu_torch.models import (ep_log_evidence, ep_predict, "
+        "fit_classify_ep, multiclass_log_evidence, multiclass_predict, "
+        "fit_classify_multi, stream_multiclass_log_evidence, "
+        "stream_multiclass_predict, stream_multiclass_state)\n"
         "assert gpr_tpu_torch.io.native.get_lib() is not None\n"
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "

@@ -8,6 +8,7 @@ rtol 1e-10 relative to each group's largest entry."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import gpr_tpu.kernels as jk
@@ -16,6 +17,18 @@ from torch_ext import F64, RTOL, close, t
 
 JP = jk.SeIso.Params(log_ell=jnp.asarray(0.2), log_sf2=jnp.asarray(0.3))
 GROUPS = ("log_ell", "log_sf2", "z", "lik")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for a module's small tensors, restored after: under
+    several pytest workers the default pool oversubscribes the cores (the
+    EP and multi-class files took 3.7x the test time).  Autouse where a
+    test module imports it."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
 
 
 def kernel():
