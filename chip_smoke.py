@@ -5,8 +5,9 @@ streaming route, the base kernel families, the composite families (the
 combinators, the ICM task kernel, the spectral mixture), per-row sigma2,
 the Gaussian-likelihood extensions (warped, online, PITC, Student-t, exact,
 batched tasks), the Laplace likelihood families (logit, Poisson, binomial,
-NB2, ordinal), EP and the softmax multi-class Laplace and the command-line
-trainer/predictor, once on one NVIDIA GPU.
+NB2, ordinal), EP and the softmax multi-class Laplace, the iterative exact
+GP, the HMC hyper posterior and the command-line trainer/predictor, once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -204,7 +205,8 @@ Phases, each printed on its own line:
    (1e-8); the IFT against the unrolled gradient in f64 at 100,000 rows,
    dense and streaming, logit and ordinal (evidence 1e-9, groups 1e-6);
    fit_classify, fit_poisson and fit_ordinal, 5 iterations in f32 at
-   100,000 rows, whose mean NLL must fall; classify_predict against
+   100,000 rows (curvature window 0.9), whose mean NLL must fall;
+   classify_predict against
    stream_classify_predict at 100,000 points (probabilities in (0, 1),
    within 1e-5).
 18. classify_ext -- EP and the softmax Laplace (no kernel; none may
@@ -230,7 +232,32 @@ Phases, each printed on its own line:
    one, served at 100,000 points (mu, Sigma, the Monte Carlo probabilities
    of one generator seed within 1e-5 of the largest entry, each row
    summing to 1); the dense state at 1M rows, timed once with its peak.
-19. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
+19. iterative -- the iterative exact GP (no kernel; none may launch) on
+   probes/r5_iterative_tpu.py's problem over bench's rows: X[:100,000], y =
+   sin(sum x) + 0.1 N(0, 1) from default_rng(1), SE-iso log_ell 1, log_sf2
+   0, sigma2 0.1, f32, 1,024 anchor rows, block 8,192: ``kernel_matvec``
+   at 1 and 9 columns against its f64 twin on the card (1e-5 relative),
+   timed beside ``matvec_bound``; the alpha solve at tol 1e-3 (400
+   iterations at most; its true relres <= 1e-3, peak memory); 256
+   variances at tol 1e-4 with the anchors' preconditioner; the SGD step
+   (``evidence_grads_iter`` with 8 probes at tol 1e-3, then
+   ``sgd_update``), its peak held under ITER_PEAK_GIB; then in f64 at
+   20,000 rows CG's alpha, means and variances against the dense
+   ``models/exact.py`` (10 x tol 1e-8) and the 4-seed mean of
+   ``evidence_grads_iter`` within 10 % of the exact autograd gradient.
+20. hmc -- bench.py's HMC leg (bench.py:804-852) through
+   ``sample_posterior``: 100,000 rows of the draw, SE-iso at bench's hypers,
+   Z fixed (m = 300), sigma2 learned, variational, dense, 8 leapfrog steps,
+   60 warmup and 20 samples, 1 chain, jitter 0.05, init step 0.02, under
+   bench's session precision "high" (TF32 forces): the first call, then ms
+   a leapfrog, min-ESS/s and the accept rate, which must lie in [0.65,
+   0.9] with the accept energy that ships (f32 at "highest"); the same with
+   no accept energy, with it in f64, and with full-f32 forces, for
+   information; 20 transitions on the streaming route (block 8,192), where
+   #3 must launch once a force and #1 once a force and once an accept
+   energy; the mixture predictive of those draws at 1,000 points, finite
+   and no narrower than the narrowest single draw.
+21. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
    bench's draw (the first 200,000 rows of X with the fit phase's targets;
    rows 200,000-299,999 to test on), se_fat with -n-inducing 300 -dim-red 8
    -log-het-sked -5 -multiscale -inducing-init first -seed 0: (a) the host
@@ -257,7 +284,11 @@ Phases, each printed on its own line:
    laplace phase's targets (-classify: yf > 0 of the fit phase's), and
    -classify -approx ep (the same labels) and -classify on bench's
    multi-class labels, dense and -block-size 16384, the nine trainings
-   side by side on the card, then their -cmd test -with-stddev side by
+   side by side on the card (and, beside (d)-(g), -exact -cg -n-inducing
+   64 -max-iter 5 on the first EXACT_ROWS rows, whose -cmd test prints the
+   CLI_TEST means and, with -with-stddev, the first CLI_CG_STDDEV rows'
+   CG standard deviations, every mean equal, as printed, to the library's
+   predict_means_iter on the artifact), then their -cmd test -with-stddev side by
    side: 100,000 finite lines each, every line but its stddev column
    (multi-class: every whole line) equal, as printed, to the library's
    latent posterior on the artifact through the model's link (EP's exact
@@ -296,6 +327,7 @@ import numpy as np
 import torch
 
 from gpr_tpu_torch import cli
+from gpr_tpu_torch.config import config
 from gpr_tpu_torch.convert import (
     from_jax_params,
     params_from_artifact,
@@ -311,7 +343,7 @@ from gpr_tpu_torch.kernels import (
     sm_init_from_data,
 )
 from gpr_tpu_torch.kernels.base import hyper_fields, hyper_leaves, static_fields
-from gpr_tpu_torch.models import ift, streaming
+from gpr_tpu_torch.models import ift, iterative, streaming
 from gpr_tpu_torch.models.fitc import calc_inducing
 from gpr_tpu_torch.numerics.linalg import (
     cholesky_upper,
@@ -410,9 +442,13 @@ from gpr_tpu_torch.optim import (
     Bailout,
     fit,
     fit_restarts,
+    hmc,
+    make_accept_energy,
     make_objective,
     make_pack,
     polish,
+    predict_hmc_mixture,
+    sample_posterior,
     train,
     train_sgd,
     train_smd,
@@ -2926,7 +2962,8 @@ def laplace_fits(dev, card, X32, Z, labels) -> None:
     """fit_classify (on the labels sign(yf) of the fit phase's targets:
     bench's classify labels are noise), fit_poisson and fit_ordinal,
     LAPLACE_FIT_ITERS iterations in f32 on the first LAPLACE_ROWS rows from
-    bench's hypers (z = Z): finite, and the mean NLL falls."""
+    bench's hypers (z = Z), the line search's curvature window 0.9 (as
+    classify_ext_fits): finite, and the mean NLL falls."""
     X = X32[:LAPLACE_ROWS]
     yf = bench_targets(dev, X32)[:LAPLACE_ROWS]
     for name in ("classify", "poisson", "ordinal"):
@@ -2935,8 +2972,10 @@ def laplace_fits(dev, card, X32, Z, labels) -> None:
         k = SeIso(LOG_ELL, LOG_SF2, device=dev, dtype=torch.float32)
         pack = make_pack(k, torch.as_tensor(Z, device=dev), 1.0,
                          learn_sigma2=False)
+        # tol 0.9: at the default 0.1 fit_ordinal took 73 evaluations for
+        # 5 iterations (44.8 s of the phase's 205 s)
         kw = dict(max_iter=LAPLACE_FIT_ITERS, newton_iters=LAPLACE_STEPS,
-                  jitter=JITTER, epsabs=1e-6)
+                  jitter=JITTER, epsabs=1e-6, tol=0.9)
         t0 = time.perf_counter()
         if name == "classify":
             out = fit_classify(X, rows, pack, **kw)
@@ -3416,6 +3455,348 @@ def classify_ext_phase(dev, card: str, data) -> None:
     log(f"classify_ext phase: {time.perf_counter() - t0:.1f} s ({card})")
 
 
+# -- iterative: the iterative exact GP (models/iterative.py) at n = 100,000
+ITER_ROWS, ITER_ANCHORS, ITER_TEST = 100_000, 1_024, 256
+ITER_LOG_ELL, ITER_LOG_SF2, ITER_SIGMA2 = 1.0, 0.0, 0.1
+ITER_COLS = (1, 9)  # the matvec's columns: y alone, and y with 8 probes
+ITER_PROBES = 8
+# The gradient step's peak, GiB above the data: reverse mode that kept every
+# (block, n) tile would stack 13 tiles of 3.3 GB (42.6 GB) per saved tensor.
+ITER_PEAK_GIB = 26.0
+ITER_F64_TOL, ITER_F64_SEEDS = 1e-8, 4  # the f64 leg at EXACT_ROWS rows
+ITER_F64_TEST = 1_000
+
+
+def iter_data(dev, X32):
+    """probes/r5_iterative_tpu.py's problem on bench's rows: X[:ITER_ROWS]
+    and y = sin(sum x) + 0.1 N(0, 1), the noise from default_rng(1)."""
+    X = X32[:ITER_ROWS]
+    noise = np.random.default_rng(1).standard_normal(ITER_ROWS)
+    y = torch.sin(X.sum(dim=1)) + 0.1 * torch.as_tensor(
+        noise, dtype=torch.float32, device=dev)
+    return X, y
+
+
+def iter_kernel(dev, dtype):
+    return SeIso(ITER_LOG_ELL, ITER_LOG_SF2, device=dev, dtype=dtype)
+
+
+def matvec_bound(n, d, r) -> dict:
+    """(K + sigma2 I) V over n rows: per entry of K the cross product (d
+    FMAs), the squared-distance assembly, scale and exp (4 operations) and
+    the product with V's r columns (r FMAs); X and V read once, the result
+    written once."""
+    return bound(n * n * (2.0 * d + 4.0 + 2.0 * r), 4.0 * n * (d + 2 * r))
+
+
+def peak_run(dev, fn):
+    """(fn's result, seconds, peak GiB above what was allocated before)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, secs, (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+
+
+def clocked(fn):
+    """(fn's result, seconds, the SM clock and power while it ran)."""
+    sampler = clock_log()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        t1 = time.time()
+    finally:
+        samples = read_clock_log(sampler)
+    return out, t1 - t0, clock_window(samples, t0, t1)
+
+
+def iter_matvec_leg(dev, card, X, k32, k64) -> list:
+    """``kernel_matvec`` alone at each of ITER_COLS columns: f32 against its
+    f64 twin on the card (1e-5 relative), the median of 3 times beside the
+    bound."""
+    V = torch.randn((ITER_ROWS, max(ITER_COLS)), device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    rows = []
+    with torch.no_grad():
+        for r in ITER_COLS:
+            def mv(r=r):
+                return iterative.kernel_matvec(k32, X, V[:, :r], ITER_SIGMA2,
+                                               block_size=BLOCK)
+            err = rel_norm(mv(), iterative.kernel_matvec(
+                k64, X.double(), V[:, :r].double(), ITER_SIGMA2,
+                block_size=BLOCK))
+            sampler = clock_log()
+            try:
+                t0 = time.time()
+                ms = median_ms(mv, reps=3)
+                t1 = time.time()
+            finally:
+                samples = read_clock_log(sampler)
+            b = matvec_bound(ITER_ROWS, D, r)
+            log(f"iterative kernel_matvec n={ITER_ROWS} r={r} block={BLOCK} "
+                f"f32: {ms:.3f} ms (median of 3), rel {err:.2e} from the f64"
+                f" twin; bound {b['bound_ms']:.3f} ms ({b['bound_by']}), "
+                f"{b['bound_ms'] / ms:.1%} of it; "
+                f"{clock_window(samples, t0, t1)} ({card})")
+            check(f"iterative kernel_matvec r={r}", err <= 1e-5,
+                  f"rel {err:.3e} from the f64 twin")
+            rows.append((r, ms, b))
+    return rows
+
+
+def iter_f64_leg(dev, card, X32, y32) -> None:
+    """EXACT_ROWS rows in f64: CG's alpha, means and variances against the
+    dense ``models/exact.py`` (10 x the CG tolerance, relative 2-norm), and
+    ``evidence_grads_iter`` averaged over ITER_F64_SEEDS generator seeds
+    within 10 % of the exact autograd gradient (JAX's criterion)."""
+    n, f64 = EXACT_ROWS, torch.float64
+    X, y = X32[:n].double(), y32[:n].double()
+    Xs = X32[ITER_ROWS:ITER_ROWS + ITER_F64_TEST].double()
+    k = iter_kernel(dev, f64)
+    gen = torch.Generator(dev).manual_seed(0)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        tr = iterative.iter_trained(k, X, y, ITER_SIGMA2,
+                                    n_inducing=ITER_ANCHORS, generator=gen,
+                                    tol=ITER_F64_TOL, max_iter=1_000,
+                                    block_size=BLOCK)
+        pre = iterative.nystrom_precond(k, X, ITER_SIGMA2, X[:ITER_ANCHORS])
+        mu = iterative.predict_means_iter(k, tr, Xs, block_size=BLOCK)
+        var, info = iterative.predict_variances_iter(
+            k, tr, X, Xs, precond=pre, tol=ITER_F64_TOL, max_iter=1_000,
+            block_size=BLOCK)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dense = exact_trained(calc_exact(k, X, ITER_SIGMA2), y)
+        errs = {"alpha": rel_norm(tr.alpha, dense.alpha),
+                "means": rel_norm(mu, predict_means_exact(k, dense, Xs)),
+                "variances": rel_norm(var, predict_variances_exact(k, dense,
+                                                                  Xs))}
+    log(f"iterative f64 at {n} rows, tol {ITER_F64_TOL:g}: alpha "
+        f"{tr.iters} iterations (relres {float(tr.relres):.2e}), "
+        f"{ITER_F64_TEST} variances {info['iters']} iterations; "
+        f"{t1 - t0:.2f} s; rel errors against the dense exact GP "
+        + ", ".join(f"{k_} {v:.2e}" for k_, v in errs.items())
+        + f" (bound {10 * ITER_F64_TOL:g}) ({card})")
+    check("iterative f64 vs exact", all(v <= 10 * ITER_F64_TOL
+                                        for v in errs.values()), f"{errs}")
+
+    s2 = torch.tensor(ITER_SIGMA2, dtype=f64, device=dev,
+                      requires_grad=True)
+    want = torch.autograd.grad(-log_evidence_exact(k, X, y, s2),
+                               (k.log_ell, k.log_sf2, s2))
+    acc = [0.0, 0.0, 0.0]
+    t0 = time.perf_counter()
+    for seed in range(ITER_F64_SEEDS):
+        (g, gs), _ = iterative.evidence_grads_iter(
+            k, X, y, ITER_SIGMA2, torch.Generator(dev).manual_seed(100 + seed),
+            n_probes=ITER_PROBES, n_inducing=ITER_ANCHORS, tol=1e-6,
+            max_iter=1_000, block_size=BLOCK)
+        for j, v in enumerate((g["log_ell"], g["log_sf2"], gs)):
+            acc[j] += float(v) / ITER_F64_SEEDS
+    secs = time.perf_counter() - t0
+    rel = [abs(a - float(w)) / abs(float(w)) for a, w in zip(acc, want)]
+    log(f"iterative f64 evidence_grads_iter mean of {ITER_F64_SEEDS} seeds "
+        f"(log_ell, log_sf2, sigma2) {[f'{a:.6g}' for a in acc]} against "
+        f"the exact gradient {[f'{float(w):.6g}' for w in want]}: rel "
+        f"{[f'{r:.2%}' for r in rel]} (bound 10 %); {secs:.2f} s ({card})")
+    check("iterative f64 gradient", all(r <= 0.1 for r in rel), f"{rel}")
+
+
+def iterative_phase(dev, card: str, data) -> None:
+    """probes/r5_iterative_tpu.py's legs on bench's rows (f32, SE-iso at
+    log_ell 1, sigma2 0.1, ITER_ANCHORS anchors, block 8,192): the matvec
+    against its f64 twin, the alpha solve, the variances, the SGD step and
+    its peak memory; then the f64 checks at EXACT_ROWS rows.  No kernel
+    launches: the iterative path runs k_cross tiles and cuBLAS products."""
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    X, y = iter_data(dev, data[0])
+    k32 = iter_kernel(dev, torch.float32)
+
+    def legs():
+        iter_matvec_leg(dev, card, X, k32, iter_kernel(dev, torch.float64))
+        anchors = X[torch.randperm(ITER_ROWS, device=dev, generator=torch
+                                   .Generator(dev).manual_seed(0))
+                    [:ITER_ANCHORS]]
+        tr, secs, peak = peak_run(dev, lambda: iterative.iter_trained(
+            k32, X, y, ITER_SIGMA2, X_sub=anchors, tol=1e-3, max_iter=400,
+            block_size=BLOCK))
+        relres = float(tr.relres)
+        log(f"iterative alpha n={ITER_ROWS} m={ITER_ANCHORS} block={BLOCK} "
+            f"tol 1e-3 f32: {1e3 * secs:.1f} ms, {tr.iters} iterations, "
+            f"true relres {relres:.3e}, peak {peak:.2f} GiB above the data "
+            f"({card})")
+        check("iterative alpha", relres <= 1e-3
+              and bool(torch.isfinite(tr.alpha).all()),
+              f"true relres {relres:.3e}")
+
+        Xs = data[0][ITER_ROWS:ITER_ROWS + ITER_TEST]
+        with torch.no_grad():
+            pre = iterative.nystrom_precond(k32, X, ITER_SIGMA2, anchors)
+        (var, info), secs, clock = clocked(
+            lambda: iterative.predict_variances_iter(
+                k32, tr, X, Xs, precond=pre, tol=1e-4, max_iter=400,
+                block_size=BLOCK))
+        vrel = float(info["relres"].max())
+        log(f"iterative variances {ITER_TEST} points tol 1e-4 f32 (the "
+            f"anchors' preconditioner): {1e3 * secs:.1f} ms, {info['iters']}"
+            f" iterations, true relres {vrel:.2e}, range "
+            f"[{float(var.min()):.4f}, {float(var.max()):.4f}]; {clock} "
+            f"({card})")
+        check("iterative variances", bool(torch.isfinite(var).all())
+              and bool((var >= ITER_SIGMA2).all()), "not finite or below s2")
+
+        def step():
+            (g, gs), info = iterative.evidence_grads_iter(
+                k32, X, y, ITER_SIGMA2, torch.Generator(dev).manual_seed(2),
+                n_probes=ITER_PROBES, n_inducing=ITER_ANCHORS, tol=1e-3,
+                max_iter=400, block_size=BLOCK)
+            kernel, s2 = iterative.sgd_update(
+                k32, torch.tensor(ITER_SIGMA2, device=dev), g, gs, 0,
+                ITER_ROWS)
+            return g, gs, info, kernel, s2
+
+        (g, gs, info, kernel, s2), secs, peak = peak_run(dev, step)
+        finite = all(bool(torch.isfinite(v)) for v in (*g.values(), gs, s2))
+        log(f"iterative SGD step n={ITER_ROWS} {ITER_PROBES} probes tol 1e-3 "
+            f"f32: {secs:.3f} s, {info['iters']} iterations (relres "
+            f"{float(info['relres'].max()):.2e}); gradient (log_ell, "
+            f"log_sf2, sigma2) ({float(g['log_ell']):.4g}, "
+            f"{float(g['log_sf2']):.4g}, {float(gs):.4g}) -> log_ell "
+            f"{float(kernel.log_ell):.5f}, sigma2 {float(s2):.5f}; peak "
+            f"{peak:.2f} GiB above the data (limit {ITER_PEAK_GIB} GiB) "
+            f"({card})")
+        check("iterative SGD step", finite and peak <= ITER_PEAK_GIB,
+              f"finite {finite}, peak {peak:.2f} GiB")
+        iter_f64_leg(dev, card, *data[:2])
+
+    _, launches = counted("iterative", legs, ())
+    check("iterative launches", not any(launches.values()),
+          f"{launches}, want all 0")
+    torch.cuda.empty_cache()
+    log(f"iterative phase: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+# -- hmc: bench.py's HMC leg (bench.py:804-852) and the streaming route
+HMC_ROWS, HMC_TEST = 100_000, 1_000
+HMC_KW = dict(n_samples=20, n_warmup=60, n_leapfrog=8, n_chains=1,
+              chain_jitter=0.05, init_step=0.02)
+HMC_STREAM_KW = dict(HMC_KW, n_samples=10, n_warmup=10)  # 20 transitions
+HMC_BAND = (0.65, 0.9)  # .claude/skills/verify/SKILL.md's accept band
+HMC_SESSION = "high"  # bench.py:258's session precision: TF32 forces here
+
+
+def hmc_report(tag, res, secs, card, kw=HMC_KW) -> float:
+    leaps = (kw["n_warmup"] + kw["n_samples"]) * kw["n_leapfrog"]
+    accept = float(res.accept_rate[0])
+    log(f"hmc {tag}: {1e3 * secs / leaps:.3f} ms a leapfrog ({secs:.2f} s "
+        f"for {leaps}), min-ESS {float(np.min(res.ess)):.2f} "
+        f"({float(np.min(res.ess)) / secs:.3f}/s), accept {accept:.3f}, "
+        f"step {float(res.step_size[0]):.4g} ({card})")
+    return accept
+
+
+def hmc_phase(dev, card: str, data) -> None:
+    """bench.py's HMC leg as written: 100,000 rows of its draw, SE-iso at
+    its hypers, Z (m = 300) fixed, sigma2 0.1 learned, variational, dense;
+    8 leapfrog steps, 60 warmup and 20 samples, 1 chain, jitter 0.05, init
+    step 0.02, under bench's session precision (``config.matmul_precision =
+    "high"``, bench.py:258: TF32 forces on this card) through
+    ``sample_posterior`` and the accept energy it ships (f32 at
+    "highest"); the same with no accept energy and with it in f64, and with
+    full-f32 forces, for information; then 20 transitions on the streaming
+    route (block 8,192: #1 and #3 once a force, #1 once more an accept
+    energy) and the mixture predictive of their draws at HMC_TEST
+    points."""
+    t_phase = time.perf_counter()
+    X32, y32, Z = data
+    X, y = X32[:HMC_ROWS], y32[:HMC_ROWS]
+    k, z, _ = bench_model(dev, Z, torch.float32)
+    pack = make_pack(k, z, SIGMA2, learn_inducing=False)
+    # the accept energy in f64 on the same rows, for the ablation
+    k64, z64, _ = bench_model(dev, Z, torch.float64)
+    energy64 = make_accept_energy(
+        X.double(), y.double(), make_pack(k64, z64, SIGMA2,
+                                          learn_inducing=False),
+        variational=True)
+    forces, _ = make_objective(X, y, pack, variational=True)
+
+    def run(seed, session=HMC_SESSION, f64_energy=False, **kw):
+        config.matmul_precision = session
+        gen = torch.Generator(dev).manual_seed(seed)
+        try:
+            if f64_energy:
+                return hmc(forces, pack.x0, gen, energy_fn=lambda x: energy64(
+                    x.double()).float(), **HMC_KW)
+            return sample_posterior(X, y, pack, gen, variational=True,
+                                    **{**HMC_KW, **kw})
+        finally:
+            config.matmul_precision = "highest"
+
+    accepts = {}
+    res, first, _ = clocked(lambda: run(5))
+    log(f"hmc first call: {first:.2f} s ({card})")
+    res, secs, clock = clocked(lambda: run(6))
+    accepts["f32 highest (shipped)"] = hmc_report(
+        f"bench leg, sample_posterior, {HMC_SESSION} forces", res, secs,
+        card)
+    log(f"hmc bench leg clock: {clock} ({card})")
+    for tag, kw in (("none", {"accept_precision": None}),
+                    ("f64 on the f32 data", {"f64_energy": True}),
+                    ("f32 highest, highest forces", {"session": "highest"})):
+        res_a, secs, _ = clocked(lambda kw=kw: run(6, **kw))
+        accepts[tag] = hmc_report(f"accept energy {tag}", res_a, secs, card)
+    log("hmc accept-energy ablation: " + ", ".join(
+        f"{k_} {v:.3f}" for k_, v in accepts.items()) + f" ({card})")
+    shipped = accepts["f32 highest (shipped)"]
+    check("hmc accept band", HMC_BAND[0] <= shipped <= HMC_BAND[1],
+          f"accept {shipped:.3f} outside {HMC_BAND}")
+    check("hmc draws", bool(torch.isfinite(res.samples).all()),
+          "nonfinite draws")
+
+    def stream():
+        return sample_posterior(X, y, pack, torch.Generator(dev).manual_seed(7),
+                                variational=True, block_size=BLOCK,
+                                **HMC_STREAM_KW)
+
+    t0 = time.perf_counter()
+    res_s, launches = counted("hmc streaming", stream,
+                              (FWD_KERNEL, BWD_KERNEL))
+    secs = time.perf_counter() - t0
+    hmc_report(f"streaming block {BLOCK}", res_s, secs, card, HMC_STREAM_KW)
+    transitions = HMC_STREAM_KW["n_warmup"] + HMC_STREAM_KW["n_samples"]
+    forces = 1 + transitions * HMC_STREAM_KW["n_leapfrog"]
+    energies = 1 + transitions
+    log(f"hmc streaming launches: {forces} forces and {energies} accept "
+        f"energies; #1 {launches[FWD_KERNEL]} (want {forces + energies}), "
+        f"#3 {launches[BWD_KERNEL]} (want {forces}) ({card})")
+    check("hmc streaming launches", launches[BWD_KERNEL] == forces
+          and launches[FWD_KERNEL] == forces + energies, f"{launches}")
+
+    Xt = X32[HMC_ROWS:HMC_ROWS + HMC_TEST]
+    (mean, var), secs, _ = clocked(lambda: predict_hmc_mixture(
+        pack, res_s.samples, X, y, Xt, variational=True))
+    per_draw = torch.stack([predict_hmc_mixture(
+        pack, s[None], X, y, Xt, variational=True)[1]
+        for s in res_s.flat])
+    floor = per_draw.min(dim=0).values
+    ok = bool(torch.isfinite(mean).all() and torch.isfinite(var).all()
+              and (var >= floor).all())
+    log(f"hmc mixture of {res_s.flat.shape[0]} draws at {HMC_TEST} points: "
+        f"{1e3 * secs:.1f} ms; finite, and at least the single draws' "
+        f"smallest variance: {ok} (variance {float(var.min()):.5f}.."
+        f"{float(var.max()):.5f}) ({card})")
+    check("hmc mixture", ok, "nonfinite or below the per-draw minimum")
+    log(f"hmc phase: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+
 # -- cli: the command-line trainer/predictor in subprocesses
 CLI_TRAIN, CLI_TEST = 200_000, 100_000  # rows of bench's draw
 CLI_COMMON = ("-n-inducing", "300", "-dim-red", "8", "-log-het-sked", "-5",
@@ -3439,6 +3820,8 @@ CLI_EXT = {
                   "-max-iter", "5"),
     "exact": (*CLI_EXT_BASE, "-exact", "-max-iter", "2"),
     "exact-loo": (*CLI_EXT_BASE, "-exact", "-loo", "-max-iter", "2"),
+    "exact-cg": (*CLI_EXT_BASE, "-exact", "-cg", "-n-inducing", "64",
+                 "-max-iter", "5"),
 }
 # the Laplace modes: each trains on its CSV (the laplace phase's labels of
 # the training rows) and serves the test rows
@@ -3513,10 +3896,11 @@ def cli_report(tag, secs, err, model, dev, Xtr, ytr, card) -> None:
 
 def cli_ext_report(tag, secs, err, card) -> None:
     """Wall time, the last ``iter`` line's iterations and evaluations (-exact
-    prints none), the ``result:`` line and, for -student-t, its weights
-    line (for -negbin, its learned dispersion)."""
+    prints none), the ``result:`` line (-exact -cg: its ``final solve:``
+    line) and, for -student-t, its weights line (for -negbin, its learned
+    dispersion)."""
     steps = re.findall(r"^iter +([0-9]+): f=.* evals=([0-9]+)", err, re.M)
-    result = re.findall(r"^result: (.*)$", err, re.M)
+    result = re.findall(r"^(?:result|final solve): (.*)$", err, re.M)
     weights = re.findall(r"^((?:student-t|negbin): .*)$", err, re.M)
     counts = (f"last M-step or run {steps[-1][0]} iterations, {steps[-1][1]}"
               f" evaluations" if steps else "no iteration lines (-exact "
@@ -3548,15 +3932,21 @@ def library_means(art, extra, kernel, z, xs) -> np.ndarray:
         .cpu().numpy()
 
 
-def cli_serve(tmp, runs, dev, card) -> None:
-    """-cmd test -with-stddev of each (tag, model, csv) of ``runs``, the
+def cli_serve(tmp, runs, dev, card, cg_runs=()) -> None:
+    """-cmd test -with-stddev of each (tag, model, csv) of ``runs`` and the
+    -exact -cg tests of ``cg_runs`` ((tag, model, csv, flags)), the
     processes side by side on the card, then each checked
-    (``cli_check_means``)."""
+    (``cli_check_means``, ``cli_check_cg``)."""
     served = cli_side_by_side(tmp, [
         (f"test-{tag}", ("-cmd", "test", "-model", model, "-with-stddev"),
-         csv) for tag, model, csv in runs])
+         csv) for tag, model, csv in runs] + [
+        (f"test-{tag}", ("-cmd", "test", "-model", model, *flags), csv)
+        for tag, model, csv, flags in cg_runs])
     for (tag, model, csv), (secs, out, _) in zip(runs, served):
         cli_check_means(tag, model, csv, secs, out, dev, card)
+    for (tag, model, csv, flags), (secs, out, _) in zip(
+            cg_runs, served[len(runs):]):
+        cli_check_cg(tag, model, csv, secs, out, dev, card, bool(flags))
 
 
 def cli_check_means(tag, model, csv, secs, out, dev, card) -> None:
@@ -3734,6 +4124,46 @@ def cli_coregionalization(err) -> np.ndarray:
                      for line in text.splitlines()[1:]])
 
 
+# -- cli helpers of the iterative exact GP's artifact
+CLI_CG_STDDEV = 2_048  # test rows the -with-stddev leg serves (CG solves)
+
+
+def cli_check_cg(tag, model, csv, secs, out, dev, card, with_stddev) -> None:
+    """What -cmd test printed for an exact_cg artifact: finite lines whose
+    means equal, as printed, the library's ``predict_means_iter`` on the
+    artifact (and, with -with-stddev, positive standard deviations)."""
+    xs_raw = torch.as_tensor(native.load_csv_file(csv), device=dev)
+    lines = Path(out).read_text().splitlines()
+    vals = np.array([[float(v) for v in line.split(",")] for line in lines])
+    art, kernel, z, s2 = cli_artifact(model, dev)
+    xs = (xs_raw - torch.as_tensor(art.input_means, device=dev)) / \
+        torch.as_tensor(art.input_stddevs, device=dev)
+    tr = iterative.IterTrained(z=z, sigma2=s2, alpha=torch.as_tensor(
+        art.coeffs, device=dev), iters=0, relres=s2)
+    means = iterative.predict_means_iter(kernel, tr, xs).cpu().numpy()
+    want = [f"{v:f}" for v in means + art.target_mean]
+    same = sum(line.split(",")[0] == w for line, w in zip(lines, want))
+    cols = 2 if with_stddev else 1
+    sd_ok = (not with_stddev) or bool((vals[:, 1] > 0).all())
+    log(f"cli test {tag}: {secs:.2f} s wall; {len(lines)} lines of {cols} "
+        f"columns, finite {bool(np.isfinite(vals).all())}, stddev > 0 "
+        f"{sd_ok}; {same} of {len(want)} means equal to the library's "
+        f"predict_means_iter as printed ({card})")
+    check(f"cli test {tag}", vals.shape == (len(want), cols)
+          and bool(np.isfinite(vals).all()) and sd_ok and same == len(want),
+          f"shape {vals.shape}, {same} means equal")
+
+
+def cli_cg_runs(tmp, model, test_csv, Xte) -> tuple:
+    """The -cmd test runs of the -exact -cg artifact for ``cli_serve``: the
+    means of the CLI_TEST rows, and with -with-stddev (a CG solve per
+    CLI_CG_STDDEV points) the first CLI_CG_STDDEV rows."""
+    small = f"{tmp}/test_cg.csv"
+    np.savetxt(small, Xte[:CLI_CG_STDDEV], fmt="%.9g", delimiter=",")
+    return (("exact-cg", model, test_csv, ()),
+            ("exact-cg-stddev", model, small, ("-with-stddev",)))
+
+
 def cli_phase(dev, card: str, data) -> None:
     # the commands' processes share the card: hand back what this process
     # holds in PyTorch's cache (the exact GP's leg takes ~30 GiB)
@@ -3831,17 +4261,20 @@ def cli_phase(dev, card: str, data) -> None:
         for (tag, _, _), (secs, _, err) in zip(ext_runs,
                                                trained[len(fam_runs):]):
             cli_ext_report(tag, secs, err, card)
-            ext_models.append((tag, f"{tmp}/{tag}.npz", test_csv))
+            if tag != "exact-cg":  # served below: its CG variances
+                ext_models.append((tag, f"{tmp}/{tag}.npz", test_csv))
 
         cli_laplace_legs(tmp, dev, card, data, Xtr, test_csv)
         t1 = time.perf_counter()
+        cg_runs = cli_cg_runs(tmp, f"{tmp}/exact-cg.npz", test_csv, Xte)
         cli_serve(tmp, (("host", host, test_csv),
                         ("device-resumed", resumed, test_csv),
                         ("matern52", matern, test_csv),
                         ("sm2", sm2, test_csv),
-                        ("icm", icm, icm_test_csv), *ext_models), dev, card)
-        log(f"cli tests: {len(ext_models) + 5} side by side in "
-            f"{time.perf_counter() - t1:.2f} s ({card})")
+                        ("icm", icm, icm_test_csv), *ext_models), dev, card,
+                  cg_runs)
+        log(f"cli tests: {len(ext_models) + 5 + len(cg_runs)} side by side "
+            f"in {time.perf_counter() - t1:.2f} s ({card})")
     log(f"cli phase: {time.perf_counter() - t0:.2f} s ({card})")
 
 
@@ -3866,6 +4299,8 @@ def main() -> int:
     gaussian_ext_phase(dev, card, data)
     laplace_phase(dev, card, data)
     classify_ext_phase(dev, card, data)
+    iterative_phase(dev, card, data)
+    hmc_phase(dev, card, data)
     cli_phase(dev, card, data)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

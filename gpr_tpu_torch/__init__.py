@@ -17,8 +17,11 @@ flagship se_fat family and every other base family (``kernels``, through
 the plain streaming loop), per-row noise on the streaming path, the
 command-line trainer/predictor (``cli``, with its CSV parser binding
 ``io.native``), the roofline GEMM chain (``ops.gemm_chain``), the
-block-diagonal numerics (``numerics.block_diag``) and the npz model
-artifacts (``io``).
+block-diagonal numerics (``numerics.block_diag``), the npz model
+artifacts (``io``), the Gaussian-likelihood extensions, the Laplace
+likelihoods, EP and the softmax Laplace, the iterative exact GP
+(``models.iterative``), the HMC hyper posterior (``optim.hmc``) and the
+tooling modules ``testing``, ``utils`` and ``viz``.
 """
 
 __version__ = "0.1.0"

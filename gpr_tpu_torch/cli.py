@@ -15,11 +15,14 @@ throttled verbose reports and a SIGINT-safe best-model bailout (:301-349),
 the host trainer or ``-trainer device`` (with ``-restarts``, ``-polish``,
 the sparse ``-loo`` and ``-checkpoint``/``-resume``), the Gaussian-likelihood
 extensions with ``-trainer device`` (``-student-t NU``, ``-warp K``,
-``-pitc-block B``), the exact dense GP (``-exact``, with ``-loo``), and the
-npz artifact of ``io/checkpoint.py``, which either package loads.  ``-cmd
-test`` prints the means (and ``-with-stddev`` the standard deviations) of
-a regression artifact: a warped one's integrate the inverse warp, an exact
-one's come from the dense posterior.
+``-pitc-block B``), the exact dense GP (``-exact``, with ``-loo``), the
+iterative exact GP (``-exact -cg``: SGD on stochastic exact-evidence
+gradients, then one preconditioned CG solve; ``models/iterative.py``), and
+the npz artifact of ``io/checkpoint.py``, which either package loads.
+``-cmd test`` prints the means (and ``-with-stddev`` the standard
+deviations) of a regression artifact: a warped one's integrate the inverse
+warp, an exact one's come from the dense posterior, an ``exact_cg`` one's
+from CG solves against its stored training inputs.
 
 Everything runs in f64, as the reference's LAPACK does, on the card
 (``cuda``) unless ``GPR_TPU_PLATFORM=cpu`` asks for the CPU; with no GPU
@@ -37,9 +40,10 @@ The Laplace likelihoods (``-classify`` with binary labels, ``-poisson``,
 artifact's schema with the mode's extras (the multi-class model's m-space
 state in ``mc_a_tilde``/``mc_b_tilde``); ``-cmd test`` serves their
 probabilities, rates or counts.  Flags of modules that are not ported yet
-(``-cg``, ``-trainer sharded`` and ``-devices``) pass the JAX package's
+(``-trainer sharded`` and ``-devices``) pass the JAX package's
 flag and data checks in its order, then exit naming their ROADMAP.md
-item.
+item.  The CG path's probes and anchor rows come from a ``torch.Generator``
+seeded with ``-seed`` (serving: seeded 0), not from JAX's keys.
 
 Run: ``python3 -m gpr_tpu_torch.cli -cmd train -model m.npz < train.csv``,
 then ``python3 -m gpr_tpu_torch.cli -cmd test -model m.npz < test.csv``.
@@ -60,12 +64,8 @@ import torch
 F64 = torch.float64
 #: the ROADMAP.md queue 1 item that ports each flag's module
 _NOT_PORTED = (
-    ("cg", "-cg", 10),
     ("devices", "-devices", 13),
 )
-#: artifact extras of the models that are not ported yet, in the JAX
-#: package's order of dispatch, and their ROADMAP.md queue 1 items
-_NOT_PORTED_EXTRAS = (("exact_cg", 10),)
 
 
 def _not_ported(what: str, item: int):
@@ -781,8 +781,9 @@ def cmd_train(args, dev) -> int:
 
     if args.exact:
         signal.signal(signal.SIGINT, old_handler)
-        return _train_exact(args, fam, X, y, seed, build_params, target_mean,
-                            input_means, input_stddevs)
+        train_exact = _train_exact_cg if args.cg else _train_exact
+        return train_exact(args, fam, X, y, seed, build_params, target_mean,
+                           input_means, input_stddevs)
 
     if args.trainer != "host":
         trained = _train_on_device(args, fam, dev, X, y, n_inducing, seed,
@@ -1484,6 +1485,88 @@ def _train_exact(args, fam, X, y, seed, build_params, target_mean,
     return 0
 
 
+def _train_exact_cg(args, fam, X, y, seed, build_params, target_mean,
+                    input_means, input_stddevs) -> int:
+    """-exact -cg: the iterative exact GP (``models.iterative``).
+
+    Hypers train by SGD on unbiased stochastic exact-evidence gradients
+    (``fit_iter``: Hutchinson probes with the Nystrom preconditioner as
+    control variate, -max-iter steps, default 60, rate -step); the
+    posterior coefficients come from one tight preconditioned CG solve
+    (tol 1e-6, 400 iterations).  The probes and anchor rows come from a
+    ``torch.Generator`` seeded with the seed.  The artifact is the JAX
+    package's: the training inputs in the inducing slot, alpha in coeffs, a
+    1 x 1 identity where no dense factor exists, tagged exact_cg=1 with the
+    standardized training inputs (cg_x) and the anchor count (cg_anchors),
+    so that ``-cmd test -with-stddev`` re-solves by CG.
+    """
+    from .io.checkpoint import ModelArtifact, kernel_params_of, save_model
+    from .kernels.base import kernel_with
+    from .models.iterative import fit_iter, iter_trained
+
+    n = X.shape[0]
+    anchors = min(max(args.n_inducing, 1), n)
+    n_steps = args.max_iter if args.max_iter is not None else 60
+    params0 = build_params(np.random.default_rng(seed))
+
+    # SGD needs a scale-aware init that L-BFGS does not: the reference's
+    # ssqr input standardization leaves inputs spanning ~n^-1/2, so a
+    # log_ell = 0 start makes the kernel constant and the clipped SGD
+    # loses the race to the all-noise basin.  A median-pairwise-distance
+    # ell and a target-variance sf2 (numpy draws, as the JAX package's);
+    # -amplitude / -sigma2 override when set away from their defaults.
+    tv = float(torch.dot(y, y) / n)
+    names = type(params0).param_names
+    upd = {}
+    if "log_ell" in names:
+        sub = X.cpu().numpy()[np.random.default_rng(seed).choice(
+            n, min(256, n), replace=False)]
+        d2 = ((sub[:, None, :] - sub[None, :, :]) ** 2).sum(-1)
+        ell0 = float(np.sqrt(np.median(d2[d2 > 0])) / 2.0)
+        upd["log_ell"] = np.log(ell0)
+    if "log_sf2" in names and args.amplitude == 1.0:
+        upd["log_sf2"] = np.log(max(tv, 1e-8))
+    if upd:
+        params0 = kernel_with(params0, {
+            k: torch.tensor(v, dtype=X.dtype, device=X.device)
+            for k, v in upd.items()})
+    sigma2_0 = args.sigma2 if args.sigma2 != 1.0 else max(tv / 4.0, 1e-8)
+
+    def cb(step, params, sigma2, info):
+        if step % 10 == 0 or step == n_steps - 1:
+            print(f"sgd step {step:4d}: sigma2 {float(sigma2):.5f} "
+                  f"cg iters {int(info['iters'])} relres "
+                  f"{float(torch.max(info['relres'])):.2e}",
+                  file=sys.stderr, flush=True)
+
+    gen = torch.Generator(X.device).manual_seed(seed)
+    params, sigma2 = fit_iter(params0, X, y, sigma2_0, generator=gen,
+                              n_steps=n_steps, eta0=args.step,
+                              n_inducing=anchors,
+                              callback=cb if args.verbose else None)
+    trained = iter_trained(params, X, y, sigma2, n_inducing=anchors,
+                           generator=gen, tol=1e-6, max_iter=400)
+    if args.verbose:
+        print(f"final solve: {trained.iters} CG iters, relres "
+              f"{float(trained.relres):.2e}, sigma2 {float(sigma2):.6f}",
+              file=sys.stderr)
+
+    eye1 = np.eye(1, dtype=np.float64)
+    save_model(args.model, ModelArtifact(
+        family_name=fam.name, kernel_params=kernel_params_of(params),
+        inducing=trained.z.detach().cpu().numpy(),
+        coeffs=trained.alpha.cpu().numpy(),
+        chol_km=eye1,  # no dense factor exists; variances re-solve by CG
+        r_mat=eye1, sigma2=float(sigma2), target_mean=target_mean,
+        input_means=input_means, input_stddevs=input_stddevs,
+    ), extra_arrays={
+        "exact_cg": np.float64(1.0),
+        "cg_x": X.cpu().numpy().astype(np.float64),
+        "cg_anchors": np.float64(anchors),
+    })
+    return 0
+
+
 def cmd_test(args, dev) -> int:
     from .convert import params_from_artifact
     from .io.checkpoint import load_model
@@ -1502,9 +1585,6 @@ def cmd_test(args, dev) -> int:
             f"incompatible dimension of inputs ({data.shape[1]}), expected "
             f"{big_dim}"
         )
-    for key, item in _NOT_PORTED_EXTRAS:
-        if key in extra:
-            raise _not_ported(f"serving a {key} artifact", item)
     inputs = (data - art.input_means) / art.input_stddevs
     X = torch.tensor(inputs, dtype=F64, device=dev)
     kernel, z, sigma2 = params_from_artifact(art, device=dev, dtype=F64)
@@ -1526,6 +1606,12 @@ def cmd_test(args, dev) -> int:
             var = predict_variances(kernel, cvp, X, 0.0,
                                     predictive=False).cpu().numpy()
         sys.stdout.write(serve_laplace(extra, mu, var, args.with_stddev))
+        return 0
+    if "exact_cg" in extra:
+        means, variances = serve_exact_cg(kernel, art, extra, X,
+                                          with_stddev=args.with_stddev,
+                                          predictive=args.predictive)
+        _write_predictions(means + art.target_mean, variances)
         return 0
     if "exact" in extra:
         means, variances = serve_exact(kernel, art, X,
@@ -1702,6 +1788,48 @@ def serve_exact(kernel, art, X, *, with_stddev=False, predictive=False):
             predict_variances_exact(kernel, tr, b, predictive=predictive)
             for b in blocks]).cpu().numpy()
     return means.cpu().numpy(), variances
+
+
+#: test points a CG variance solve takes at a time: the (n, columns) right
+#: -hand side and the CG state at 20,000 training rows are 330 MB each in
+#: f64
+CG_SERVE_COLS = 2048
+
+
+@torch.no_grad()
+def serve_exact_cg(kernel, art, extra, X, *, with_stddev=False,
+                   predictive=False):
+    """(means, variances or None) of an iterative exact-GP artifact at X
+    (on the device): the means k(X, Xtrain) alpha (``predict_means_iter``);
+    the variances solved by Nystrom-preconditioned CG at tol 1e-4 against
+    the stored training inputs ``cg_x`` (exact variances, not the FITC
+    approximation), CG_SERVE_COLS test points a solve, the anchor rows
+    drawn by a generator seeded 0."""
+    from .models.iterative import (
+        IterTrained,
+        _anchors,
+        nystrom_precond,
+        predict_means_iter,
+        predict_variances_iter,
+    )
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=F64, device=X.device)
+
+    tr = IterTrained(z=t(art.inducing), sigma2=t(art.sigma2),
+                     alpha=t(art.coeffs), iters=0, relres=t(0.0))
+    means = predict_means_iter(kernel, tr, X).cpu().numpy()
+    if not with_stddev:
+        return means, None
+    x_train = t(extra["cg_x"])
+    pre = nystrom_precond(kernel, x_train, tr.sigma2, _anchors(
+        x_train, int(extra["cg_anchors"]),
+        torch.Generator(X.device).manual_seed(0)))
+    variances = torch.cat([
+        predict_variances_iter(kernel, tr, x_train, X[i:i + CG_SERVE_COLS],
+                               predictive=predictive, precond=pre)[0]
+        for i in range(0, X.shape[0], CG_SERVE_COLS)])
+    return means, variances.cpu().numpy()
 
 
 def main(argv=None) -> int:

@@ -1,8 +1,9 @@
 """Global configuration of the PyTorch port.
 
 The counterpart of ``gpr_tpu/config.py``: the reference's ``cholesky_jitter``
-plus the precision dials.  Left out on purpose: ``acc_precision`` and
-``bwd_demote_sites``, which were tuned for the TPU's multi-pass bf16 GEMMs.
+and ``debug`` plus the precision dials.  Left out on purpose:
+``acc_precision`` and ``bwd_demote_sites``, which were tuned for the TPU's
+multi-pass bf16 GEMMs.
 
 ``matmul_precision`` maps onto PyTorch's TF32 switches instead of a
 ``lax.Precision``: ``"highest"`` (the default) runs float32 products in full
@@ -28,6 +29,9 @@ class Config:
     # lib/utils.ml:35).  In float32, cholesky_upper raises it to 1e-5 of the
     # mean diagonal.
     cholesky_jitter: float = 1e-6
+    # Debug-gated invariant checks (the reference's lib/utils.ml:34,118-192;
+    # ``utils.check_finite`` / ``check_symmetric``).
+    debug: bool = False
     # "highest" | "high" | "default": see the module docstring.
     matmul_precision: str = "highest"
     # "gemm" | "direct": pairwise squared-distance assembly

@@ -83,6 +83,19 @@ from .ift import (
     make_binv,
     newton_scan_generic,
 )
+from .iterative import (
+    IterTrained,
+    NystromPrecond,
+    evidence_grads_iter,
+    fit_iter,
+    iter_trained,
+    kernel_matvec,
+    nystrom_precond,
+    pcg,
+    predict_means_iter,
+    predict_variances_iter,
+    sgd_update,
+)
 from .loo import (
     loo_log_likelihood as loo_log_likelihood_fitc,
     loo_objective as loo_objective_fitc,

@@ -1,3 +1,12 @@
+from .hmc import (
+    HMCResult,
+    bulk_ess,
+    hmc,
+    make_accept_energy,
+    predict_hmc_mixture,
+    sample_posterior,
+    split_rhat,
+)
 from .lbfgs import LBFGSHostState, LBFGSResult, minimize_lbfgs
 from .lbfgs_device import (
     LBFGSDeviceState,

@@ -8,10 +8,11 @@ device`` (dense and streaming), ``-restarts``, ``-polish`` and the sparse
 ``-loo``; ``-cmd test`` prints the same text whichever package wrote the
 artifact and whichever serves it; ``-checkpoint``/``-resume`` lands
 bit-equal on the uninterrupted run; bad command lines get the JAX
-package's messages and the flags of modules not ported yet (-cg,
--trainer sharded) exit naming their ROADMAP.md item.  The Laplace modes:
+package's messages and the flags of modules not ported yet (-trainer
+sharded, -devices) exit naming their ROADMAP.md item.  The Laplace modes:
 ``test_torch_cli_laplace.py``; EP and multi-class:
-``test_torch_cli_classify.py``.  The port's CSV binding is held against the JAX
+``test_torch_cli_classify.py``; the iterative exact GP (-exact -cg):
+``test_torch_cli_cg.py``.  The port's CSV binding is held against the JAX
 package's, and one real process runs ``python -m gpr_tpu_torch.cli``.
 """
 
@@ -408,7 +409,6 @@ def test_test_messages(data, tmp_path):
 
 
 NOT_PORTED = {
-    "-cg": (["-exact", "-cg"], 10),
     "-trainer sharded": (["-trainer", "sharded"], 13),
     "-devices": (["-trainer", "sharded", "-devices", "2"], 13),
 }
@@ -425,18 +425,6 @@ def test_not_ported_flags(case, tmp_path):
     assert rc == 1 and out == ""
     assert f"queue 1 item {item}" in err and case.split()[-1] in err
     assert not os.path.exists(tmp_path / "m.npz")
-
-
-def test_extension_artifact_not_served(data, tmp_path):
-    """The artifact of the iterative exact GP (-exact -cg)."""
-    csv, test_csv = data
-    _train("torch", tmp_path / "m.npz", SE_FAT + BASE, csv)
-    art, _ = tckpt.load_model(str(tmp_path / "m.npz"))
-    tckpt.save_model(str(tmp_path / "p.npz"), art,
-                     extra_arrays={"exact_cg": np.asarray(1)})
-    rc, out, err = run("torch", ["-cmd", "test", "-model",
-                                 str(tmp_path / "p.npz")], test_csv)
-    assert rc == 1 and out == "" and "exact_cg" in err and "item 10" in err
 
 
 def test_no_gpu_no_fallback(monkeypatch, tmp_path):

@@ -8,8 +8,9 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent / "gpr_tpu_torch"
 # modules of the training leg, the roofline path, the Quick-start path, the
 # command-line path, the base kernel families, the Gaussian-likelihood
-# extensions, the Laplace likelihoods, EP and the softmax Laplace, named so
-# that a move or a rename cannot drop them from the scan unnoticed
+# extensions, the Laplace likelihoods, EP and the softmax Laplace, the
+# iterative exact GP, HMC and the tooling, named so that a move or a rename
+# cannot drop them from the scan unnoticed
 NEWER = ("models/fitc.py", "optim/lbfgs.py", "optim/train.py",
          "optim/polish.py", "ops/gemm_chain.py", "datasets.py",
          "models/predict.py", "models/stats.py", "models/sample.py",
@@ -23,7 +24,9 @@ NEWER = ("models/fitc.py", "optim/lbfgs.py", "optim/train.py",
          "models/classify.py", "models/classify_stream.py",
          "models/poisson.py", "models/binomial.py", "models/negbin.py",
          "models/ordinal.py", "models/classify_ep.py",
-         "models/classify_multi.py", "models/classify_multi_stream.py")
+         "models/classify_multi.py", "models/classify_multi_stream.py",
+         "models/iterative.py", "optim/hmc.py", "testing.py", "utils.py",
+         "viz.py")
 
 
 def _jax_imports(path):
@@ -85,6 +88,13 @@ def test_import_loads_no_jax():
         "fit_classify_ep, multiclass_log_evidence, multiclass_predict, "
         "fit_classify_multi, stream_multiclass_log_evidence, "
         "stream_multiclass_predict, stream_multiclass_state)\n"
+        "from gpr_tpu_torch.models import (iter_trained, fit_iter, "
+        "evidence_grads_iter, predict_variances_iter)\n"
+        "from gpr_tpu_torch.optim import (hmc, sample_posterior, "
+        "predict_hmc_mixture)\n"
+        "import gpr_tpu_torch.testing, gpr_tpu_torch.utils, "
+        "gpr_tpu_torch.viz\n"
+        "assert 'matplotlib' not in sys.modules or 'matplotlib' in before\n"
         "assert gpr_tpu_torch.io.native.get_lib() is not None\n"
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
