@@ -6,8 +6,10 @@ combinators, the ICM task kernel, the spectral mixture), per-row sigma2,
 the Gaussian-likelihood extensions (warped, online, PITC, Student-t, exact,
 batched tasks), the Laplace likelihood families (logit, Poisson, binomial,
 NB2, ordinal), EP and the softmax multi-class Laplace, the iterative exact
-GP, the HMC hyper posterior and the command-line trainer/predictor, once on
-one NVIDIA GPU.
+GP, the HMC hyper posterior, data-parallel training and serving over
+torch.distributed ranks and the command-line trainer/predictor, once on
+one NVIDIA GPU (the parallel phase's ranks share it over gloo; with a card
+for each rank they take NCCL).
 
     python3 chip_smoke.py
 
@@ -257,7 +259,25 @@ Phases, each printed on its own line:
    #3 must launch once a force and #1 once a force and once an accept
    energy; the mixture predictive of those draws at 1,000 points, finite
    and no narrower than the narrowest single draw.
-21. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
+21. parallel -- ``gpr_tpu_torch/parallel/`` at bench's full width (the
+   step's draw and model, f32, block 8,192): (a) a one-rank world (NCCL)
+   whose sharded evidence and gradient equal streaming_log_evidence's on
+   the same card within 1e-6 relative; then PAR_RANKS = 2 ranks (gloo on
+   the one card, the backend and the rank-to-card map printed), against
+   the single-device path computed first in this process: (b) the step's
+   value within 2e-5 and each gradient group within 1e-3 relative, #1 and
+   #3 launched exactly once in each rank for one evaluation (counted in
+   the ranks), ms per evaluation beside one rank's with the SM clock and
+   power, the time of one all-reduce of the m^2 + m + 4 statistics, and
+   ``fit_sharded`` for 5 iterations, x bit-equal on the ranks, beside
+   ``fit``'s mean NLL; (c) the TSQR evidence within 2e-5 of the Gram one;
+   (d) the sharded predictors' 1M means and variances within 1e-5 of the
+   single-device ones; (e) the binary Laplace at 1M rows (bench's classify
+   labels, 15 Newton steps) within 2e-5 / 1e-3; (f) ``sharded_iter_solve``
+   over the iterative phase's problem (tol 1e-3, its true relres <= 1e-3,
+   alpha within 1e-2 of the single-device solve's), and whether the ring's
+   send/recv staged through the host.
+22. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
    bench's draw (the first 200,000 rows of X with the fit phase's targets;
    rows 200,000-299,999 to test on), se_fat with -n-inducing 300 -dim-red 8
    -log-het-sked -5 -multiscale -inducing-init first -seed 0: (a) the host
@@ -288,7 +308,10 @@ Phases, each printed on its own line:
    64 -max-iter 5 on the first EXACT_ROWS rows, whose -cmd test prints the
    CLI_TEST means and, with -with-stddev, the first CLI_CG_STDDEV rows'
    CG standard deviations, every mean equal, as printed, to the library's
-   predict_means_iter on the artifact), then their -cmd test -with-stddev side by
+   predict_means_iter on the artifact; and -trainer sharded -devices 2
+   -block-size 16384 -max-iter 5 with (b)'s other flags, whose hypers must
+   lie within 1e-6 relative of (b)'s uninterrupted run's), then their -cmd
+   test -with-stddev side by
    side: 100,000 finite lines each, every line but its stddev column
    (multi-class: every whole line) equal, as printed, to the library's
    latent posterior on the artifact through the model's link (EP's exact
@@ -438,6 +461,20 @@ from gpr_tpu_torch.models.warped import (
     warped_log_evidence,
     warped_predict_moments,
 )
+from gpr_tpu_torch.parallel import (
+    fit_sharded,
+    run_spmd,
+    shard_batch,
+    sharded_classify_log_evidence,
+    sharded_grad,
+    sharded_iter_solve,
+    sharded_log_evidence,
+    sharded_log_evidence_tsqr,
+    sharded_predict_means,
+    sharded_predict_variances,
+    sharded_value_and_grad,
+)
+from gpr_tpu_torch.parallel.spmd import choose_backend
 from gpr_tpu_torch.optim import (
     Bailout,
     fit,
@@ -452,6 +489,7 @@ from gpr_tpu_torch.optim import (
     train,
     train_sgd,
     train_smd,
+    value_and_grad,
 )
 
 N, D, M = 1_000_000, 8, 300
@@ -3799,10 +3837,300 @@ def hmc_phase(dev, card: str, data) -> None:
 
 # -- cli: the command-line trainer/predictor in subprocesses
 CLI_TRAIN, CLI_TEST = 200_000, 100_000  # rows of bench's draw
+# the parallel phase: gpr_tpu_torch/parallel/ at bench's full width
+PAR_RANKS = 2  # gloo ranks sharing the one card; NCCL where each has one
+PAR_FIT_ITERS = 5
+PAR_TIMES = 5  # evaluations timed, after a warm-up
+PAR_ALLSUM_REPS = 20
+
+
+def par_model(dev, Z):
+    """bench's SE-iso model (log_ell 0.5, sigma2 0.1), f32, packed."""
+    return make_pack(*bench_model(dev, Z, torch.float32))
+
+
+def par_value_and_grad(mesh, pack, X, y, mask):
+    """The sharded evidence over this rank's rows and its gradient over the
+    packed hypers (spmd.sharded_value_and_grad)."""
+    def f(x):
+        kernel, z, s2 = pack.unpack(x)
+        return sharded_log_evidence(kernel, mesh, z, s2, X, y, mask,
+                                    block_size=BLOCK, jitter=JITTER)
+
+    return sharded_value_and_grad(mesh, f, pack.x0)
+
+
+def single_value_and_grad(pack, X, y):
+    """The same on one device: streaming_log_evidence's default route."""
+    def f(x):
+        kernel, z, s2 = pack.unpack(x)
+        return streaming.streaming_log_evidence(
+            kernel, z, s2, X, y, block_size=BLOCK, jitter=JITTER)
+
+    return value_and_grad(f)(pack.x0)
+
+
+def pack_groups(pack, g):
+    """The packed gradient's groups: sigma2, log_ell, log_sf2, z."""
+    return {"sigma2": g[:1], "log_ell": g[1:2], "log_sf2": g[2:3],
+            "z": g[3:]}
+
+
+def parallel_one_rank(mesh):
+    """(a): on a one-rank world, the sharded evidence and its gradient and,
+    in the same process, streaming_log_evidence's."""
+    X32, y32, Z = bench_data(mesh.device)
+    pack = par_model(mesh.device, Z)
+    got = par_value_and_grad(mesh, pack, *shard_batch(mesh, X32, y32))
+    return mesh.backend, got, single_value_and_grad(pack, X32, y32)
+
+
+def rank_launches(mesh, fn):
+    """fn() with every launch counter of this rank set to 0 just before it;
+    (fn's result, each rank's counts of #1 and #3 just after)."""
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    out = fn()
+    torch.cuda.synchronize(mesh.device)
+    mine = torch.tensor([[WRAPPERS[FWD_KERNEL].launches,
+                          WRAPPERS[BWD_KERNEL].launches]],
+                        dtype=torch.float64, device=mesh.device)
+    return out, mesh.all_gather(mine).long().tolist()
+
+
+def rank_median_ms(mesh, fn, reps=PAR_TIMES):
+    """Host clock around ``reps`` lock-step calls after a warm-up: (median
+    ms, the window's unix start and end)."""
+    fn()
+    torch.cuda.synchronize(mesh.device)
+    t0, times = time.time(), []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(mesh.device)
+        times.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(times), (t0, time.time())
+
+
+def parallel_ranks(mesh, serving, anchors):
+    """(b)-(f) on each rank of the phase's world; rank 0's results."""
+    dev = mesh.device
+    X32, y32, Z = bench_data(dev)
+    pack = par_model(dev, Z)
+    shards = shard_batch(mesh, X32, y32)
+    out = {"backend": mesh.backend, "cards": mesh.all_gather(torch.tensor(
+        [dev.index], device=dev)).tolist()}
+    # (b) the main path: one evaluation, counted in every rank, then timed
+    out["vg"], out["launches"] = rank_launches(
+        mesh, lambda: par_value_and_grad(mesh, pack, *shards))
+    out["ms"], out["window"] = rank_median_ms(
+        mesh, lambda: par_value_and_grad(mesh, pack, *shards))
+    stats = torch.ones(M * M + M + 4, dtype=torch.float32, device=dev)
+    out["allsum_ms"], _ = rank_median_ms(mesh, lambda: [
+        mesh.allsum(stats) for _ in range(PAR_ALLSUM_REPS)])
+    out["allsum_ms"] /= PAR_ALLSUM_REPS
+    yf = bench_targets(dev, X32)
+    fit_pack = make_pack(SeIso(LOG_ELL, LOG_SF2, device=dev,
+                               dtype=torch.float32),
+                         torch.as_tensor(Z, device=dev), 1.0)
+    t = time.perf_counter()
+    (*_, st), fit_launches = rank_launches(mesh, lambda: fit_sharded(
+        mesh, X32, yf, fit_pack, variational=True, block_size=BLOCK,
+        max_iter=PAR_FIT_ITERS, epsabs=1e-4))
+    secs = time.perf_counter() - t
+    xs = mesh.all_gather(st.x[None])
+    out["fit"] = (float(st.f), st.n_iter, st.n_evals, secs,
+                  bool(torch.all(xs == xs[0])), fit_launches)
+    kernel, z, s2 = pack.unpack(pack.x0)
+    with torch.no_grad():
+        # (c) TSQR
+        t = time.perf_counter()
+        out["tsqr"] = (float(sharded_log_evidence_tsqr(
+            kernel, mesh, z, s2, *shards, jitter=JITTER)),
+            time.perf_counter() - t)
+        # (d) serving: all of X's rows split over the ranks
+        coeffs, chol_km, r_mat, zi = (v.to(dev) for v in serving)
+        t = time.perf_counter()
+        out["means"] = sharded_predict_means(kernel, mesh, zi, coeffs, X32,
+                                             block_size=BLOCK)
+        out["variances"] = sharded_predict_variances(
+            kernel, mesh, zi, chol_km, r_mat, X32, SIGMA2, block_size=BLOCK)
+        torch.cuda.synchronize(dev)
+        out["predict_s"] = time.perf_counter() - t
+    # (e) the binary Laplace at 1M rows, dense on each rank's rows
+    yc = torch.sign(y32) + (y32 == 0).to(torch.float32)
+    k = SeIso(LOG_ELL, LOG_SF2, device=dev, dtype=torch.float32)
+    zc = leaf(Z, torch.float32, dev)
+    t = time.perf_counter()
+    ev = sharded_classify_log_evidence(k, mesh, zc, *shard_batch(
+        mesh, X32, yc), newton_iters=LAPLACE_STEPS, jitter=JITTER)
+    grads = sharded_grad(mesh, ev, (k.log_ell, k.log_sf2, zc))
+    out["classify"] = (ev.item(), grads, time.perf_counter() - t)
+    # (f) the iterative alpha solve over the iterative phase's rows
+    X, y = iter_data(dev, X32)
+    Xl, yl, ml = shard_batch(mesh, X, y)
+    t = time.perf_counter()
+    alpha, iters, relres = sharded_iter_solve(
+        iter_kernel(dev, torch.float32), mesh, Xl, yl, ITER_SIGMA2,
+        anchors.to(dev), ml, tol=1e-3, max_iter=400, block_size=BLOCK)
+    out["iter"] = (alpha[:ITER_ROWS], iters, float(relres.max()),
+                   time.perf_counter() - t)
+    out["staged"] = dict(mesh.staged)
+    return out
+
+
+def parallel_phase(dev, card: str, data) -> None:
+    """gpr_tpu_torch/parallel/ on the card at bench's full width: (a) a
+    one-rank world against the single-device step; then, on PAR_RANKS ranks
+    (gloo sharing the card, or NCCL with a card each), (b) the training
+    step, its launches counted in the ranks, its time and fit_sharded's
+    lock step, (c) TSQR, (d) the sharded predictors, (e) the binary Laplace
+    at 1M rows, (f) the ring-matvec CG solve at ITER_ROWS rows; each against
+    the single-device path computed here first."""
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    X32, y32, Z = data
+    backend = choose_backend("cuda", PAR_RANKS)
+    # (a)
+    t = time.perf_counter()
+    be1, (v1, g1), (v0, g0) = run_spmd(parallel_one_rank, 1)
+    rel_v = abs(float(v1) - float(v0)) / abs(float(v0))
+    rel_g = rel_norm(g1, g0)
+    log(f"parallel one rank ({be1}): evidence {float(v1):.3f} against "
+        f"streaming_log_evidence's {float(v0):.3f} (rel {rel_v:.2e}), "
+        f"gradient rel {rel_g:.2e}; {time.perf_counter() - t:.1f} s with the "
+        f"rank's start ({card})")
+    check("parallel one rank", rel_v <= 1e-6 and rel_g <= 1e-6,
+          f"value rel {rel_v:.2e}, gradient rel {rel_g:.2e}")
+
+    # the single-device references on this process's card
+    pack = par_model(dev, Z)
+    v_ref, g_ref = single_value_and_grad(pack, X32, y32)
+    single_ms = median_ms(lambda: single_value_and_grad(pack, X32, y32))
+    yf = bench_targets(dev, X32)
+    fit_pack = make_pack(SeIso(LOG_ELL, LOG_SF2, device=dev,
+                               dtype=torch.float32),
+                         torch.as_tensor(Z, device=dev), 1.0)
+    t = time.perf_counter()
+    *_, st_ref = fit(X32, yf, fit_pack, variational=True,
+                     streaming_block_size=BLOCK, max_iter=PAR_FIT_ITERS,
+                     epsabs=1e-4)
+    fit_secs = time.perf_counter() - t
+    kernel, z, s2 = pack.unpack(pack.x0)
+    trained = streaming.streaming_trained(kernel, z, s2, X32, y32,
+                                          jitter=JITTER, block_size=BLOCK)
+    model = trained.model
+    serving = (trained.coeffs, model.inducing.chol_km, model.r_mat,
+               model.inducing.z)
+    means_ref = streaming.predict_means_blocked(
+        kernel, model.inducing.z, trained.coeffs, X32, block_size=BLOCK)
+    vars_ref = streaming.predict_variances_blocked(
+        kernel, model.inducing.z, model.inducing.chol_km, model.r_mat, X32,
+        SIGMA2, block_size=BLOCK)
+    yc = torch.sign(y32) + (y32 == 0).to(torch.float32)
+    c_ref, cg_ref = laplace_value_and_grad("classify", yc, X32, Z)
+    X, y = iter_data(dev, X32)
+    anchors = X[torch.randperm(ITER_ROWS, device=dev, generator=torch
+                               .Generator(dev).manual_seed(0))
+                [:ITER_ANCHORS]]
+    tr = iterative.iter_trained(iter_kernel(dev, torch.float32), X, y,
+                                ITER_SIGMA2, X_sub=anchors, tol=1e-3,
+                                max_iter=400, block_size=BLOCK)
+    log(f"parallel references on one card: value+grad {single_ms:.2f} ms, "
+        f"fit {PAR_FIT_ITERS} iterations {fit_secs:.2f} s, alpha "
+        f"{tr.iters} iterations ({card})")
+    torch.cuda.empty_cache()
+
+    sampler = clock_log()
+    try:
+        t = time.perf_counter()
+        res = run_spmd(parallel_ranks, PAR_RANKS,
+                       tuple(v.cpu() for v in serving), anchors.cpu())
+        world_secs = time.perf_counter() - t
+    finally:
+        samples = read_clock_log(sampler)
+    log(f"parallel world: {PAR_RANKS} ranks, backend {res['backend']} "
+        f"(chosen {backend}), rank -> card {dict(enumerate(res['cards']))}; "
+        f"{world_secs:.1f} s with the ranks' start ({card})")
+    check("parallel backend", res["backend"] == backend, res["backend"])
+
+    # (b)
+    v, g = res["vg"][0], res["vg"][1].to(dev)
+    rel_v = abs(float(v) - float(v_ref)) / abs(float(v_ref))
+    errs = {name: rel_norm(gg, w) for (name, gg), w in zip(
+        pack_groups(pack, g).items(), pack_groups(pack, g_ref).values())}
+    log(f"parallel step P={PAR_RANKS}: evidence {float(v):.3f} against one "
+        f"rank's {float(v_ref):.3f} (rel {rel_v:.2e}); grad rel "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + f" ({card})")
+    check("parallel step", rel_v <= 2e-5 and max(errs.values()) <= 1e-3,
+          f"value rel {rel_v:.2e}, grads {errs}")
+    launches = res["launches"]
+    log(f"parallel launches per rank (#1, #3) in one evaluation: {launches}")
+    check("parallel launches", all(c == [1, 1] for c in launches),
+          f"{launches}")
+    t0, t1 = res["window"]
+    log(f"time parallel value+grad P={PAR_RANKS} ({res['backend']}): "
+        f"{res['ms']:.2f} ms per evaluation (one rank on the card: "
+        f"{single_ms:.2f} ms); allsum of {M * M + M + 4} f32 "
+        f"({4e-6 * (M * M + M + 4):.2f} MB) {res['allsum_ms']:.3f} ms; "
+        f"{clock_window(samples, t0, t1)} ({card})")
+    f, n_iter, n_evals, secs, equal, fit_launches = res["fit"]
+    log(f"parallel fit_sharded P={PAR_RANKS}: {n_iter} iterations, "
+        f"{n_evals} evaluations, mean NLL {f:.6f} (fit on one card: "
+        f"{float(st_ref.f):.6f}, {st_ref.n_iter} iterations, "
+        f"{st_ref.n_evals} evaluations), x bit-equal on the ranks: {equal}; "
+        f"{secs:.2f} s = {1e3 * secs / n_evals:.1f} ms per evaluation "
+        f"(one card: {1e3 * fit_secs / st_ref.n_evals:.1f}); launches "
+        f"(#1, #3) per rank {fit_launches} ({card})")
+    check("parallel fit", equal and math.isfinite(f)
+          and all(c == [n_evals, n_evals] for c in fit_launches),
+          f"x equal {equal}, f {f}, launches {fit_launches}")
+    # (c)
+    v_tsqr, secs = res["tsqr"]
+    rel = abs(v_tsqr - float(v)) / abs(float(v))
+    log(f"parallel tsqr P={PAR_RANKS}: evidence {v_tsqr:.3f} against the "
+        f"Gram path's {float(v):.3f} (rel {rel:.2e}; truth {TRUTH}), "
+        f"{secs:.2f} s ({card})")
+    check("parallel tsqr", rel <= 2e-5, f"rel {rel:.2e}")
+    # (d)
+    e_means = rel_norm(res["means"].to(dev), means_ref)
+    e_vars = rel_norm(res["variances"].to(dev), vars_ref)
+    log(f"parallel predict P={PAR_RANKS} at {N} points: means rel "
+        f"{e_means:.2e}, variances rel {e_vars:.2e} against one card's, "
+        f"{res['predict_s']:.3f} s ({card})")
+    check("parallel predict", e_means <= 1e-5 and e_vars <= 1e-5,
+          f"means {e_means:.2e}, variances {e_vars:.2e}")
+    # (e)
+    c_v, c_g, secs = res["classify"]
+    rel_v = abs(c_v - c_ref) / abs(c_ref)
+    errs = {name: rel_norm(gg.to(dev), w) for name, gg, w in zip(
+        ("log_ell", "log_sf2", "z"), c_g, cg_ref)}
+    log(f"parallel classify P={PAR_RANKS} at {N} rows: evidence {c_v:.3f} "
+        f"against one card's {c_ref:.3f} (rel {rel_v:.2e}); grad rel "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + f"; {secs:.2f} s ({card})")
+    check("parallel classify", rel_v <= 2e-5 and max(errs.values()) <= 1e-3,
+          f"value rel {rel_v:.2e}, grads {errs}")
+    # (f)
+    alpha, iters, relres, secs = res["iter"]
+    e_alpha = rel_norm(alpha.to(dev), tr.alpha)
+    staged = res["staged"]
+    log(f"parallel iter_solve P={PAR_RANKS} at {ITER_ROWS} rows tol 1e-3: "
+        f"{iters} iterations (one card: {tr.iters}), true relres "
+        f"{relres:.2e}, alpha rel {e_alpha:.2e} from one card's, "
+        f"{secs:.2f} s; collectives staged through the host: "
+        f"{staged or 'none'} ({card})")
+    check("parallel iter_solve", relres <= 1e-3 and e_alpha <= 1e-2,
+          f"relres {relres:.2e}, alpha rel {e_alpha:.2e}")
+    log(f"parallel phase: {time.perf_counter() - t_phase:.2f} s ({card})")
+
+
 CLI_COMMON = ("-n-inducing", "300", "-dim-red", "8", "-log-het-sked", "-5",
               "-multiscale", "-inducing-init", "first", "-seed", "0",
               "-verbose")
 CLI_DEVICE = ("-trainer", "device", "-block-size", "16384")
+CLI_SHARDED = ("-trainer", "sharded", "-devices", str(PAR_RANKS),
+               "-block-size", "16384")
 CLI_FAMILY = ("-kernel", "matern52", "-n-inducing", "300", "-inducing-init",
               "first", "-seed", "0", "-verbose")
 CLI_SM2 = ("-kernel", "sm2", *CLI_FAMILY[2:])
@@ -3856,6 +4184,19 @@ def cli_run(tmp, tag, argv, stdin_path):
     check(f"cli {tag}", proc.returncode == 0,
           f"exit {proc.returncode}: {err[-2000:]}")
     return secs, out, err
+
+
+def cli_sharded_leg(run, model, device_model, dev, Xtr, ytr, card) -> None:
+    """-trainer sharded -devices PAR_RANKS (its ranks sharing the card over
+    gloo, or a card each over NCCL): its report, and its hypers against the
+    -trainer device run's (same flags, -max-iter 5) within 1e-6
+    relative."""
+    secs, _, err = run
+    cli_report("sharded", secs, err, model, dev, Xtr, ytr, card)
+    rel = rel_norm(cli_hypers(model, dev), cli_hypers(device_model, dev))
+    log(f"cli sharded: final hypers rel {rel:.3e} from -trainer device's "
+        f"({card})")
+    check("cli sharded", rel <= 1e-6, f"hypers off by rel {rel:.3e}")
 
 
 def cli_artifact(path, dev):
@@ -4240,12 +4581,15 @@ def cli_phase(dev, card: str, data) -> None:
             ("icm", (*CLI_ICM, *CLI_DEVICE), icm_csv, Xtr_icm))
         ext_runs = tuple((tag, flags, exact_csv if "-exact" in flags
                           else train_csv) for tag, flags in CLI_EXT.items())
+        sharded = f"{tmp}/sharded.npz"
         t1 = time.perf_counter()
         trained = cli_side_by_side(tmp, [
             (tag, ("-cmd", "train", "-model", f"{tmp}/{tag}.npz", *flags,
                    *(("-max-iter", "5") if x is not None else ())), csv)
             for tag, flags, csv, x in (*fam_runs, *((*r, None)
-                                                    for r in ext_runs))])
+                                                    for r in ext_runs))]
+            + [("sharded", ("-cmd", "train", "-model", sharded, *CLI_COMMON,
+                            *CLI_SHARDED, "-max-iter", "5"), train_csv)])
         log(f"cli trainings: {len(trained)} side by side in "
             f"{time.perf_counter() - t1:.2f} s ({card})")
         for (tag, _, _, x), (secs, _, err) in zip(fam_runs, trained):
@@ -4257,6 +4601,7 @@ def cli_phase(dev, card: str, data) -> None:
             f"{np.array2string(B, precision=4, separator=', ')} ({card})")
         check("cli icm B", B.shape == (ICM_TASKS, ICM_TASKS)
               and bool(np.isfinite(B).all()), f"B of shape {B.shape}")
+        cli_sharded_leg(trained[-1], sharded, full, dev, Xtr, ytr, card)
         ext_models = []
         for (tag, _, _), (secs, _, err) in zip(ext_runs,
                                                trained[len(fam_runs):]):
@@ -4301,6 +4646,7 @@ def main() -> int:
     classify_ext_phase(dev, card, data)
     iterative_phase(dev, card, data)
     hmc_phase(dev, card, data)
+    parallel_phase(dev, card, data)
     cli_phase(dev, card, data)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

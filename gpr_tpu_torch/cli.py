@@ -39,10 +39,17 @@ The Laplace likelihoods (``-classify`` with binary labels, ``-poisson``,
 0..C-1, C >= 3) train with ``-trainer device`` and write the regression
 artifact's schema with the mode's extras (the multi-class model's m-space
 state in ``mc_a_tilde``/``mc_b_tilde``); ``-cmd test`` serves their
-probabilities, rates or counts.  Flags of modules that are not ported yet
-(``-trainer sharded`` and ``-devices``) pass the JAX package's
-flag and data checks in its order, then exit naming their ROADMAP.md
-item.  The CG path's probes and anchor rows come from a ``torch.Generator``
+probabilities, rates or counts.  ``-trainer sharded -devices N`` trains
+on N spawned ranks of a ``torch.distributed`` world (``parallel.run_spmd``:
+one card each where there are N cards, else gloo ranks sharing the card,
+or gloo CPU ranks under ``GPR_TPU_PLATFORM=cpu``; default N: every visible
+card, 1 on the CPU): each rank runs this command's preparation on the
+parsed rows and fits its share of them with the mesh, and this process
+writes the artifact from rank 0's hypers, on the whole data, as the
+single-device trainers do; SIGINT stops every rank after the same chunk
+and keeps that state, as ``-trainer device`` does.  A 2-D mesh
+(``-devices DxM``) is not ported yet: it passes the JAX package's flag and
+data checks in its order, then exits naming its ROADMAP.md item.  The CG path's probes and anchor rows come from a ``torch.Generator``
 seeded with ``-seed`` (serving: seeded 0), not from JAX's keys.
 
 Run: ``python3 -m gpr_tpu_torch.cli -cmd train -model m.npz < train.csv``,
@@ -52,20 +59,21 @@ then ``python3 -m gpr_tpu_torch.cli -cmd test -model m.npz < test.csv``.
 from __future__ import annotations
 
 import argparse
+import copy
 import math
 import os
 import signal
 import sys
 import time
+from collections.abc import Callable
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 F64 = torch.float64
-#: the ROADMAP.md queue 1 item that ports each flag's module
-_NOT_PORTED = (
-    ("devices", "-devices", 13),
-)
+#: the ROADMAP.md queue 1 item that ports each mode not ported yet
+_NOT_PORTED = {"-devices DxM": 13}
 
 
 def _not_ported(what: str, item: int):
@@ -602,25 +610,91 @@ def _check_labels(args, targets, trials, n):
 
 
 def _refuse_not_ported(args):
-    """Exit naming the ROADMAP.md item of the first flag whose module is
-    not ported yet."""
-    for attr, flag, item in _NOT_PORTED:
-        value = getattr(args, attr)
-        if value is not None and value is not False:
-            raise _not_ported(flag, item)
-    if args.trainer == "sharded":
-        raise _not_ported("-trainer sharded", 13)
+    """Exit naming the ROADMAP.md item of a mode that is not ported yet:
+    the 2-D data x model mesh."""
+    if args.devices is not None and "x" in str(args.devices):
+        raise _not_ported(f"-devices {args.devices} (a 2-D data x model "
+                          "mesh)", _NOT_PORTED["-devices DxM"])
+
+
+def _n_ranks(args, dev) -> int:
+    """-devices N, else every visible card (one rank on the CPU)."""
+    if args.devices is None:
+        return torch.cuda.device_count() if dev.type == "cuda" else 1
+    try:
+        n = int(args.devices)
+    except ValueError:
+        n = 0
+    if n < 1:
+        raise SystemExit(f"-devices needs N >= 1 (or DxM), got "
+                         f"{args.devices!r}")
+    return n
+
+
+class _Prepared(NamedTuple):
+    """The training command's data and starts, as ``_prepare_train`` makes
+    them from the flags and the parsed rows."""
+
+    fam: object
+    X: torch.Tensor
+    y: torch.Tensor
+    trials: torch.Tensor | None
+    n_inducing: int
+    seed: int
+    build_params: Callable
+    n_extensions: int
+    n_classes: int
+    target_mean: float
+    input_means: np.ndarray
+    input_stddevs: np.ndarray
 
 
 def cmd_train(args, dev) -> int:
-    fam = _family(args)
-    from .kernels.base import kernel_with
-    from .models import calc_stats
-    from .optim import Bailout, train
-
+    """-cmd train: fit the flags' model to the rows on stdin and write its
+    artifact; returns the exit code."""
     if args.resume and args.checkpoint is None:
         raise SystemExit("-resume requires -checkpoint FILE")
     data = read_samples(sys.stdin)
+    given = copy.copy(args)  # each rank of -trainer sharded prepares anew
+    s = _prepare_train(args, dev, data)
+    if args.trainer == "sharded":
+        given.seed = s.seed  # one draw of the default seed for every rank
+        return _train_sharded(args, given, data, dev, s)
+    if args.exact and not s.n_extensions:
+        train_exact = _train_exact_cg if args.cg else _train_exact
+        return train_exact(args, s.fam, s.X, s.y, s.seed, s.build_params,
+                           s.target_mean, s.input_means, s.input_stddevs)
+
+    got_signal = {"flag": False}
+
+    def on_sigint(signum, frame):
+        got_signal["flag"] = True
+
+    def stopped():
+        return got_signal["flag"]
+
+    old_handler = signal.signal(signal.SIGINT, on_sigint)
+    try:
+        if s.n_extensions:
+            _, result, st, _ = _fit_extension(args, s, dev, stopped)
+        elif args.trainer == "device":
+            trained = _train_on_device(args, s, dev, stopped)
+        else:
+            trained = _train_host(args, s, dev, stopped)
+    finally:
+        signal.signal(signal.SIGINT, old_handler)
+    if s.n_extensions:
+        return _finish_extension(args, s, result, st)
+    return _finish_regression(args, s, trained)
+
+
+def _prepare_train(args, dev, data) -> _Prepared:
+    """The flag and data checks of -cmd train in the JAX package's order,
+    the labels' and inputs' normalisation and the per-restart kernel draw,
+    on the parsed rows ``data``."""
+    fam = _family(args)
+    from .kernels.base import kernel_with
+
     trials = None
     if args.binomial:
         # binomial rows are x..., trials, successes (flag help)
@@ -737,24 +811,30 @@ def cmd_train(args, dev) -> int:
                     log_sf2, dtype=F64, device=dev)})
             return p
 
-    got_signal = {"flag": False}
+    return _Prepared(fam, X, y, trials_t, n_inducing, seed, build_params,
+                     n_extensions, n_classes, target_mean, input_means,
+                     input_stddevs)
 
-    def on_sigint(signum, frame):
-        got_signal["flag"] = True
 
-    old_handler = signal.signal(signal.SIGINT, on_sigint)
+def _stats_line(trained) -> str:
+    from .models import calc_stats
+
+    st = calc_stats(trained)
+    return (
+        f"MSLL={float(st.msll):7.7f} SMSE={float(st.smse):7.7f} "
+        f"MAD={float(st.mad):7.7f} MAXAD={float(st.maxad):7.7f}"
+    )
+
+
+def _train_host(args, s, dev, stopped):
+    """-trainer host: ``optim.train`` from each restart's start, keeping
+    the highest finite evidence; SIGINT keeps the best model so far."""
+    from .optim import Bailout, train
 
     last_report = {"eval": 0.0, "grad": 0.0}
 
-    def stats_line(trained):
-        st = calc_stats(trained)
-        return (
-            f"MSLL={float(st.msll):7.7f} SMSE={float(st.smse):7.7f} "
-            f"MAD={float(st.mad):7.7f} MAXAD={float(st.maxad):7.7f}"
-        )
-
     def bailout(iter):
-        if got_signal["flag"]:
+        if stopped():
             raise Bailout
         if args.max_iter is not None and iter > args.max_iter:
             raise Bailout
@@ -763,7 +843,7 @@ def cmd_train(args, dev) -> int:
         bailout(iter)
         if args.verbose and time.time() - last_report["eval"] > 1.0:
             last_report["eval"] = time.time()
-            print(f"iter {iter:4d}: {stats_line(trained)}", file=sys.stderr,
+            print(f"iter {iter:4d}: {_stats_line(trained)}", file=sys.stderr,
                   flush=True)
 
     def report_gradient_norm(iter, norm):
@@ -773,76 +853,106 @@ def cmd_train(args, dev) -> int:
             print(f"iter {iter:4d}: |gradient|={norm:.5f}", file=sys.stderr,
                   flush=True)
 
-    if n_extensions:
-        return _train_extension(args, fam, dev, X, y, n_inducing, seed,
-                                build_params, got_signal, old_handler,
-                                target_mean, input_means, input_stddevs,
-                                n_classes, trials_t)
+    trained = None
+    for r in range(max(1, args.restarts)):
+        seed_r = s.seed + r
+        params_r = s.build_params(np.random.default_rng(seed_r))
+        z_r = (
+            None if args.inducing_init == "random"
+            else _choose_inducing(args, seed_r, params_r, s.X, s.n_inducing)
+        )
+        cand = train(
+            s.fam, s.X, s.y,
+            kernel_params=params_r,
+            sigma2=args.sigma2,
+            inducing=z_r,
+            n_rand_inducing=s.n_inducing,
+            variational=True,  # Variational_FIC, like the CLI
+            block_size=args.block_size,
+            step=args.step, tol=args.tol, epsabs=args.eps,
+            max_iter=args.max_iter,
+            report_trained_model=report_trained_model,
+            report_gradient_norm=report_gradient_norm,
+            generator=torch.Generator(dev).manual_seed(seed_r),
+            checkpoint_path=args.checkpoint,
+            resume=args.resume,
+        )
+        # NaN-safe best: a diverged draw (NaN evidence) must never beat
+        # a finite one — every float comparison against NaN is False
+        def _key(t):
+            l = float(t.l)
+            return (math.isfinite(l), l if math.isfinite(l) else 0.0)
 
-    if args.exact:
-        signal.signal(signal.SIGINT, old_handler)
-        train_exact = _train_exact_cg if args.cg else _train_exact
-        return train_exact(args, fam, X, y, seed, build_params, target_mean,
-                           input_means, input_stddevs)
+        if trained is None or _key(cand) > _key(trained):
+            trained = cand
+        if args.verbose and args.restarts > 1:
+            print(f"restart {r}: log evidence {float(cand.l):.3f}"
+                  f" (best {float(trained.l):.3f})", file=sys.stderr)
+        if stopped():
+            break  # SIGINT: keep the best model found so far
+    return trained
 
-    if args.trainer != "host":
-        trained = _train_on_device(args, fam, dev, X, y, n_inducing, seed,
-                                   build_params, got_signal, old_handler)
-        trained = _apply_polish(args, X, y, trained)
-        if args.verbose:
-            print(f"result: {stats_line(trained)}", file=sys.stderr)
-        _write_artifact(args, fam, trained, target_mean, input_means,
-                        input_stddevs)
-        return 0
 
+def _finish_regression(args, s, trained) -> int:
+    """-polish, the -verbose result and the regression artifact."""
+    trained = _apply_polish(args, s.X, s.y, trained)
+    if args.verbose:
+        print(f"result: {_stats_line(trained)}", file=sys.stderr)
+    _write_artifact(args, s.fam, trained, s.target_mean, s.input_means,
+                    s.input_stddevs)
+    return 0
+
+
+def _train_sharded(args, given, data, dev, s) -> int:
+    """-trainer sharded: the fit on -devices N spawned ranks
+    (``parallel.run_spmd``, each running ``_train_rank`` on the command as
+    ``given`` and the parsed rows ``data``), then the artifact from rank
+    0's final state, written here on the whole data as the single-device
+    trainers write theirs.  SIGINT sets ``stop``: the ranks read it
+    together after their in-flight chunk and stop there, and the last
+    completed state is written, as with -trainer device."""
+    from .models.streaming import streaming_trained
+    from .optim.train import TrainResult
+    from .parallel import run_spmd
+
+    n_ranks = _n_ranks(args, dev)
+    stop = torch.multiprocessing.get_context("spawn").Event()
+    old_handler = signal.signal(signal.SIGINT, lambda *_: stop.set())
     try:
-        trained = None
-        for r in range(max(1, args.restarts)):
-            seed_r = seed + r
-            params_r = build_params(np.random.default_rng(seed_r))
-            z_r = (
-                None if args.inducing_init == "random"
-                else _choose_inducing(args, seed_r, params_r, X, n_inducing)
-            )
-            cand = train(
-                fam, X, y,
-                kernel_params=params_r,
-                sigma2=args.sigma2,
-                inducing=z_r,
-                n_rand_inducing=n_inducing,
-                variational=True,  # Variational_FIC, like the CLI
-                block_size=args.block_size,
-                step=args.step, tol=args.tol, epsabs=args.eps,
-                max_iter=args.max_iter,
-                report_trained_model=report_trained_model,
-                report_gradient_norm=report_gradient_norm,
-                generator=torch.Generator(dev).manual_seed(seed_r),
-                checkpoint_path=args.checkpoint,
-                resume=args.resume,
-            )
-            # NaN-safe best: a diverged draw (NaN evidence) must never beat
-            # a finite one — every float comparison against NaN is False
-            def _key(t):
-                l = float(t.l)
-                return (math.isfinite(l), l if math.isfinite(l) else 0.0)
-
-            if trained is None or _key(cand) > _key(trained):
-                trained = cand
-            if args.verbose and args.restarts > 1:
-                print(f"restart {r}: log evidence {float(cand.l):.3f}"
-                      f" (best {float(trained.l):.3f})", file=sys.stderr)
-            if got_signal["flag"]:
-                break  # SIGINT: keep the best model found so far
+        if args.verbose:
+            print(f"-trainer sharded: {n_ranks} ranks", file=sys.stderr,
+                  flush=True)
+        r, st = run_spmd(_train_rank, n_ranks, given, data, stop)
     finally:
         signal.signal(signal.SIGINT, old_handler)
+    st = st._replace(x=st.x.to(dev))
+    result = _unpack_state(args, s, st, r, dev)
+    if s.n_extensions:
+        return _finish_extension(args, s, result, st)
+    p, z, s2, _ = result
+    trained = streaming_trained(p, z, s2, s.X, s.y, variational=True,
+                                block_size=args.block_size or 8192)
+    return _finish_regression(args, s, TrainResult(trained, p, z, s2))
 
-    trained = _apply_polish(args, X, y, trained)
-    if args.verbose:
-        print(f"result: {stats_line(trained)}", file=sys.stderr)
 
-    _write_artifact(args, fam, trained, target_mean, input_means,
-                    input_stddevs)
-    return 0
+def _train_rank(mesh, args, data, stop):
+    """One rank of -trainer sharded: the command's preparation on the
+    parsed rows ``data``, then its fit with ``mesh``; returns (the winning
+    start, its final optimizer state).  Rank 0 alone reports and
+    checkpoints.  After each chunk every rank reads rank 0's view of
+    ``stop``, so all of them stop after the same one."""
+    if mesh.rank != 0:
+        args.verbose, args.checkpoint = False, None
+    s = _prepare_train(args, mesh.device, data)
+
+    def stopped():
+        flag = torch.tensor(float(stop.is_set()), device=mesh.device)
+        return bool(mesh.broadcast(flag))
+
+    if s.n_extensions:
+        _, _, st, r = _fit_extension(args, s, mesh.device, stopped, mesh)
+        return r, st
+    return _fit_on_mesh(args, s, mesh, stopped)
 
 
 def _apply_polish(args, X, y, trained):
@@ -926,38 +1036,19 @@ def _write_artifact(args, fam, trained, target_mean, input_means,
     ))
 
 
-def _train_on_device(args, fam, dev, X, y, n_inducing, seed, build_params,
-                     got_signal, old_handler):
-    """-trainer device: the device-resident chunked L-BFGS
-    (optim.lbfgs_device.fit) at the CLI surface.  Same model (variational
-    FIC), same artifact schema as the host loop, the mean-NLL objective.
-    -eps keeps the host trainer's TOTAL-gradient meaning: mean |g| < eps/n
-    <=>  total |g| < eps, so the same flag value stops both trainers at the
-    same point.  SIGINT stops after the in-flight chunk and keeps the
-    incumbent (the device L-BFGS is monotone, so the incumbent IS the best
-    model so far).
-    """
-    from .models.fitc import calc_model, calc_trained
-    from .optim import Bailout, make_pack
-    from .optim.lbfgs_device import fit, fit_restarts
-    from .optim.train import TrainResult
+def _start(args, s, r):
+    """(kernel, z) of restart r: the kernel draw seeded -seed + r and its
+    inducing points (-inducing-init)."""
+    params = s.build_params(np.random.default_rng(s.seed + r))
+    return params, _choose_inducing(args, s.seed + r, params, s.X,
+                                    s.n_inducing)
 
-    max_iter = args.max_iter if args.max_iter is not None else 100
 
-    def start(r):
-        params = build_params(np.random.default_rng(seed + r))
-        z = _choose_inducing(args, seed + r, params, X, n_inducing)
-        return params, z
-
-    params0, z0 = start(0)
-    pack = make_pack(params0, z0, args.sigma2)
-
-    common = dict(
-        variational=True, step=args.step, tol=args.tol,
-        epsabs=args.eps / X.shape[0], max_iter=max_iter,
-    )
-    # -loo (sparse): validated upstream to the device trainer only
-    loo_kw = {"objective": "loo"} if args.loo else {}
+def _chunk_watch(args, stopped):
+    """(on_chunk, last_state): the device L-BFGS's per-chunk callback,
+    which keeps the state in ``last_state["st"]``, writes -checkpoint,
+    reports under -verbose and raises Bailout once ``stopped()``."""
+    from .optim import Bailout
 
     last_state = {"st": None}
 
@@ -973,47 +1064,75 @@ def _train_on_device(args, fam, dev, X, y, n_inducing, seed, build_params,
                 f"|gradient|={float(torch.linalg.norm(st.g)):.5f} "
                 f"evals={int(st.n_evals)}", file=sys.stderr, flush=True,
             )
-        if got_signal["flag"]:
+        if stopped():
             raise Bailout
 
-    try:
-        if args.restarts > 1:
-            x0s = [pack.x0] + [
-                make_pack(*start(r), args.sigma2).x0
-                for r in range(1, args.restarts)
-            ]
-            p_f, z_f, s2_f, st, probe_fs = fit_restarts(
-                X, y, pack, x0s,
-                streaming_block_size=args.block_size, **common, **loo_kw,
-            )
-            if args.verbose:
-                print(f"restart probes: "
-                      f"{[round(float(f), 4) for f in probe_fs]}",
-                      file=sys.stderr)
-        else:
-            init_state = None
-            if args.resume and os.path.exists(args.checkpoint):
-                from .io.resume import load_device_checkpoint
+    return on_chunk, last_state
 
-                init_state = load_device_checkpoint(args.checkpoint,
-                                                    device=dev)
-                if init_state.x.shape != pack.x0.shape:
-                    raise SystemExit(
-                        "checkpoint hyper vector does not match this "
-                        "configuration — resume requires the same "
-                        "model/data setup"
-                    )
-            try:
-                p_f, z_f, s2_f, st = fit(
-                    X, y, pack,
-                    streaming_block_size=args.block_size,
-                    init_state=init_state, state_callback=on_chunk,
-                    **common, **loo_kw,
+
+def _regression_fit_kw(args, s):
+    """The device L-BFGS settings of the regression trainers."""
+    return dict(
+        variational=True, step=args.step, tol=args.tol,
+        epsabs=args.eps / s.X.shape[0],
+        max_iter=args.max_iter if args.max_iter is not None else 100,
+    )
+
+
+def _train_on_device(args, s, dev, stopped):
+    """-trainer device: the device-resident chunked L-BFGS
+    (optim.lbfgs_device.fit) at the CLI surface.  Same model (variational
+    FIC), same artifact schema as the host loop, the mean-NLL objective.
+    -eps keeps the host trainer's TOTAL-gradient meaning: mean |g| < eps/n
+    <=>  total |g| < eps, so the same flag value stops both trainers at the
+    same point.  SIGINT stops after the in-flight chunk and keeps the
+    incumbent (the device L-BFGS is monotone, so the incumbent IS the best
+    model so far).
+    """
+    from .models.fitc import calc_model, calc_trained
+    from .optim import Bailout, make_pack
+    from .optim.lbfgs_device import fit, fit_restarts
+    from .optim.train import TrainResult
+
+    X, y = s.X, s.y
+    pack = make_pack(*_start(args, s, 0), args.sigma2)
+    common = _regression_fit_kw(args, s)
+    # -loo (sparse): validated upstream to the device trainer only
+    loo_kw = {"objective": "loo"} if args.loo else {}
+    on_chunk, last_state = _chunk_watch(args, stopped)
+
+    if args.restarts > 1:
+        x0s = [pack.x0] + [make_pack(*_start(args, s, r), args.sigma2).x0
+                           for r in range(1, args.restarts)]
+        p_f, z_f, s2_f, st, probe_fs = fit_restarts(
+            X, y, pack, x0s,
+            streaming_block_size=args.block_size, **common, **loo_kw,
+        )
+        if args.verbose:
+            print(f"restart probes: "
+                  f"{[round(float(f), 4) for f in probe_fs]}",
+                  file=sys.stderr)
+    else:
+        init_state = None
+        if args.resume and os.path.exists(args.checkpoint):
+            from .io.resume import load_device_checkpoint
+
+            init_state = load_device_checkpoint(args.checkpoint, device=dev)
+            if init_state.x.shape != pack.x0.shape:
+                raise SystemExit(
+                    "checkpoint hyper vector does not match this "
+                    "configuration — resume requires the same "
+                    "model/data setup"
                 )
-            except Bailout:
-                p_f, z_f, s2_f = pack.unpack(last_state["st"].x)
-    finally:
-        signal.signal(signal.SIGINT, old_handler)
+        try:
+            p_f, z_f, s2_f, st = fit(
+                X, y, pack,
+                streaming_block_size=args.block_size,
+                init_state=init_state, state_callback=on_chunk,
+                **common, **loo_kw,
+            )
+        except Bailout:
+            p_f, z_f, s2_f = pack.unpack(last_state["st"].x)
 
     if args.block_size is not None:
         from .models.streaming import streaming_trained
@@ -1029,13 +1148,40 @@ def _train_on_device(args, fam, dev, X, y, n_inducing, seed, build_params,
     return TrainResult(trained, p_f, z_f, s2_f)
 
 
-def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
-                     got_signal, old_handler, target_mean, input_means,
-                     input_stddevs, n_classes=2, trials=None) -> int:
+def _fit_on_mesh(args, s, mesh, stopped):
+    """-trainer sharded's regression fit on a rank: ``fit_sharded`` (or
+    ``fit_restarts_sharded`` with -restarts); returns (the winning start,
+    its final state)."""
+    from .optim import Bailout, make_pack
+    from .parallel import fit_restarts_sharded, fit_sharded
+
+    pack = make_pack(*_start(args, s, 0), args.sigma2)
+    common = _regression_fit_kw(args, s)
+    block_size = args.block_size or 8192
+    if args.restarts > 1:
+        x0s = [pack.x0] + [make_pack(*_start(args, s, r), args.sigma2).x0
+                           for r in range(1, args.restarts)]
+        *_, st, rep = fit_restarts_sharded(
+            mesh, s.X, s.y, pack, x0s, block_size=block_size, **common)
+        if args.verbose:
+            print(f"restart probes (split over {mesh.size} ranks): "
+                  f"{[round(float(f), 4) for f in rep]}", file=sys.stderr)
+        return rep.winner, st
+    on_chunk, last_state = _chunk_watch(args, stopped)
+    try:
+        *_, st = fit_sharded(mesh, s.X, s.y, pack, block_size=block_size,
+                             state_callback=on_chunk, **common)
+    except Bailout:
+        st = last_state["st"]
+    return 0, st
+
+
+def _fit_extension(args, s, dev, stopped, mesh=None):
     """The extension modes at the CLI surface (the JAX package's
-    ``_train_extension``, its single-device branches).  Each trains through
-    the packed device L-BFGS (``optim.fit_packed_objective``) and writes the
-    regression artifact's schema with the mode's extras:
+    ``_train_extension``).  Each trains through the packed device L-BFGS
+    (``optim.fit_packed_objective``); returns (key, result, state, r) of
+    the best restart (``_best_restart``), and ``_finish_extension`` writes
+    the regression artifact's schema with the mode's extras:
 
       * -classify (binary), -poisson, -binomial, -negbin R0, -ordinal: the
         Laplace models (``models/classify.py`` and its siblings; dense, or
@@ -1055,7 +1201,11 @@ def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
         standard predictors.
 
     -restarts N keeps the lowest final mean-NLL objective; -checkpoint and
-    -resume follow the device trainer's rules (not with -student-t)."""
+    -resume follow the device trainer's rules (not with -student-t).
+
+    With ``mesh`` (a rank of -trainer sharded) each fit takes it: the count
+    likelihoods, the warp and PITC through their sharded objectives, as the
+    JAX package's CLI builds them."""
     from .models.binomial import fit_binomial
     from .models.classify import fit_classify
     from .models.classify_ep import fit_classify_ep
@@ -1065,35 +1215,28 @@ def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
     from .models.pitc import pitc_log_evidence
     from .models.poisson import fit_poisson
     from .models.robust import fit_t
-    from .models.warped import default_warp_params, fit_warped
+    from .models.classify import fit_laplace
+    from .models.warped import (
+        default_warp_params,
+        fit_warped,
+        make_warped_pack,
+    )
     from .optim import Bailout, make_pack
     from .optim.lbfgs_device import fit_packed_objective, value_and_grad
+    from .parallel import (
+        shard_batch,
+        sharded_binomial_log_evidence,
+        sharded_negbin_log_evidence,
+        sharded_pitc_log_evidence,
+        sharded_poisson_log_evidence,
+        sharded_warped_log_evidence,
+    )
 
+    X, y, trials, n_classes = s.X, s.y, s.trials, s.n_classes
     n = X.shape[0]
     max_iter = args.max_iter if args.max_iter is not None else 100
     block_size = args.block_size or 8192
-
-    def start(r):
-        params = build_params(np.random.default_rng(seed + r))
-        return params, _choose_inducing(args, seed + r, params, X,
-                                        n_inducing)
-
-    last_state = {"st": None}
-
-    def on_chunk(st):
-        last_state["st"] = st
-        if args.checkpoint is not None:
-            from .io.resume import save_device_checkpoint
-
-            save_device_checkpoint(args.checkpoint, st)
-        if args.verbose:
-            print(
-                f"iter {int(st.n_iter):4d}: f={float(st.f):.6f} "
-                f"|gradient|={float(torch.linalg.norm(st.g)):.5f} "
-                f"evals={int(st.n_evals)}", file=sys.stderr, flush=True,
-            )
-        if got_signal["flag"]:
-            raise Bailout
+    on_chunk, last_state = _chunk_watch(args, stopped)
 
     def load_resume_state(pack_x0):
         if not args.resume or not os.path.exists(args.checkpoint):
@@ -1111,11 +1254,18 @@ def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
     common = dict(step=args.step, tol=args.tol, epsabs=args.eps / n,
                   max_iter=max_iter, state_callback=on_chunk)
 
+    def fit_mesh(evidence, pack, data, x0):
+        """The mean-NLL fit of a sharded ``evidence(x, *data)`` over this
+        rank's ``data`` (the count likelihoods, the warp, PITC)."""
+        return fit_laplace(evidence, pack, data, True, n, mesh=mesh,
+                           init_state=load_resume_state(x0), **common)
+
     def run_one(r):
         """One fit from start r: ((kernel, z, sigma2 or the dispersion,
         the warp or the cutpoint raws), state)."""
-        params0, z0 = start(r)
-        laplace = dict(block_size=args.block_size, **common)
+        params0, z0 = _start(args, s, r)
+        laplace = dict(block_size=args.block_size, mesh=mesh, **common)
+        shards = None if mesh is None else shard_batch(mesh, X, y)
         if args.classify or args.poisson or args.binomial:
             pack = make_pack(params0, z0, 1.0, learn_sigma2=False)
             init = load_resume_state(pack.x0)
@@ -1124,16 +1274,29 @@ def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
                                               init_state=init, **laplace)
             elif args.classify and args.approx == "ep":
                 p, z, st = fit_classify_ep(X, y, pack, init_state=init,
-                                           **common)
+                                           mesh=mesh, **common)
             elif args.classify:
                 p, z, st = fit_classify(X, y, pack, init_state=init,
                                         **laplace)
+            elif mesh is not None:
+                # the count likelihoods: binomial's trials shard too
+                evidence, rows = (
+                    (sharded_poisson_log_evidence, ()) if args.poisson
+                    else (sharded_binomial_log_evidence,
+                          (shard_batch(mesh, X, trials)[1],)))
+
+                def counts(x, Xs, ys, ms):
+                    kernel, z, _ = pack.unpack(x)
+                    return evidence(kernel, mesh, z, Xs, ys, *rows, ms)
+
+                st = fit_mesh(counts, pack, shards, pack.x0)
+                p, z, _ = pack.unpack(st.x)
             elif args.poisson:
                 p, z, st = fit_poisson(X, y, pack, init_state=init,
-                                       **laplace)
+                                       **common, block_size=args.block_size)
             else:
                 p, z, st = fit_binomial(X, y, trials, pack, init_state=init,
-                                        **laplace)
+                                        **common, block_size=args.block_size)
             return (p, z, None, None), st
         if args.ordinal:
             pack = make_pack(params0, z0, 1.0, learn_sigma2=False)
@@ -1146,8 +1309,18 @@ def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
         if args.negbin is not None:
             # the pack's positive sigma2 slot carries the NB dispersion r
             pack = make_pack(params0, z0, args.negbin)
-            p, z, r_disp, st = fit_negbin(
-                X, y, pack, init_state=load_resume_state(pack.x0), **laplace)
+            if mesh is None:
+                p, z, r_disp, st = fit_negbin(
+                    X, y, pack, init_state=load_resume_state(pack.x0),
+                    **common, block_size=args.block_size)
+            else:
+                def negbin(x, Xs, ys, ms):
+                    kernel, z, r = pack.unpack(x)
+                    return sharded_negbin_log_evidence(kernel, mesh, z, Xs,
+                                                       ys, r, ms)
+
+                st = fit_mesh(negbin, pack, shards, pack.x0)
+                p, z, r_disp = pack.unpack(st.x)
             if args.verbose:
                 print(f"negbin: learned dispersion r = {float(r_disp):.4f} "
                       f"(started at {args.negbin:g}; larger = closer to "
@@ -1157,7 +1330,7 @@ def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
         if args.student_t is not None:
             n_em = 5
             p, z, s2, lam, st = fit_t(
-                X, y, pack, nu=args.student_t, n_em=n_em,
+                X, y, pack, nu=args.student_t, n_em=n_em, mesh=mesh,
                 m_step_iters=max(5, max_iter // n_em),
                 **{k: v for k, v in common.items() if k != "max_iter"},
             )
@@ -1171,66 +1344,95 @@ def _train_extension(args, fam, dev, X, y, n_inducing, seed, build_params,
             return (p, z, s2, None), st
         if args.warp:
             wp0 = default_warp_params(args.warp, device=dev, dtype=X.dtype)
-            p, z, s2, wp, st = fit_warped(
-                X, y, pack, wp0, variational=True, block_size=block_size,
-                init_state=load_resume_state(torch.cat([
-                    pack.x0, pack.x0.new_zeros(3 * args.warp)])),
-                **common,
-            )
-            return (p, z, s2, wp), st
+            if mesh is None:
+                p, z, s2, wp, st = fit_warped(
+                    X, y, pack, wp0, variational=True, block_size=block_size,
+                    init_state=load_resume_state(torch.cat([
+                        pack.x0, pack.x0.new_zeros(3 * args.warp)])),
+                    **common,
+                )
+                return (p, z, s2, wp), st
+            pack_w, unpack_w = make_warped_pack(pack, wp0)
 
-        def neg(x, X, y):
-            params, z, sigma2 = pack.unpack(x)
-            return -(1.0 / n) * pitc_log_evidence(
-                params, z, sigma2, X, y, block_size=args.pitc_block)
+            def warped(x, Xs, ys, ms):
+                kernel, z, sigma2, wp = unpack_w(x)
+                return sharded_warped_log_evidence(
+                    kernel, mesh, wp, z, sigma2, Xs, ys, ms,
+                    variational=True, block_size=block_size)
 
-        st = fit_packed_objective(value_and_grad(neg), pack, (X, y),
-                                  init_state=load_resume_state(pack.x0),
-                                  **common)
+            st = fit_mesh(warped, pack_w, shards, pack_w.x0)
+            return unpack_w(st.x), st
+
+        if mesh is None:
+            def neg(x, X, y):
+                params, z, sigma2 = pack.unpack(x)
+                return -(1.0 / n) * pitc_log_evidence(
+                    params, z, sigma2, X, y, block_size=args.pitc_block)
+
+            st = fit_packed_objective(value_and_grad(neg), pack, (X, y),
+                                      init_state=load_resume_state(pack.x0),
+                                      **common)
+        else:
+            def pitc(x, Xs, ys, ms):
+                kernel, z, sigma2 = pack.unpack(x)
+                return sharded_pitc_log_evidence(
+                    kernel, mesh, z, sigma2, Xs, ys, ms,
+                    block_size=args.pitc_block)
+
+            st = fit_mesh(pitc, pack, shards, pack.x0)
         p, z, s2 = pack.unpack(st.x)
         return (p, z, s2, None), st
 
-    best = None
-    try:
-        for r in range(max(1, args.restarts)):
-            try:
-                result, st = run_one(r)
-            except Bailout:
-                st = last_state["st"]
-                if st is None:
-                    raise SystemExit("interrupted before the first iteration")
-                result = _unpack_extension_state(args, st, r, dev, start)
-            # NaN-safe best (lower mean NLL wins; NaN never beats finite)
-            f = float(st.f)
-            key_ = (not math.isfinite(f), f if math.isfinite(f) else 0.0)
-            if best is None or key_ < best[0]:
-                best = (key_, result, st)
-            if args.verbose and args.restarts > 1:
-                print(f"restart {r}: objective {f:.6f} "
-                      f"(best {float(best[2].f):.6f})", file=sys.stderr)
-            if got_signal["flag"]:
-                break
-    finally:
-        signal.signal(signal.SIGINT, old_handler)
+    return _best_restart(args, s, run_one, stopped, last_state, dev)
 
-    _, result, st = best
+
+def _finish_extension(args, s, result, st) -> int:
+    """The -verbose result and the extension mode's artifact."""
     if args.verbose:
         print(f"result: objective={float(st.f):.6f} "
               f"|gradient|={float(torch.linalg.norm(st.g)):.2e}",
               file=sys.stderr)
-    _write_extension_artifact(args, fam, result, X, y, target_mean,
-                              input_means, input_stddevs, block_size,
-                              n_classes, trials)
+    _write_extension_artifact(args, s.fam, result, s.X, s.y, s.target_mean,
+                              s.input_means, s.input_stddevs,
+                              args.block_size or 8192, s.n_classes, s.trials)
     return 0
 
 
-def _unpack_extension_state(args, st, r, dev, start):
+def _best_restart(args, s, run_one, stopped, last_state, dev):
+    """(key, result, state, r) of the best of -restarts fits ``run_one(r)``
+    (the lowest final mean-NLL objective; NaN never wins)."""
+    from .optim import Bailout
+
+    best = None
+    for r in range(max(1, args.restarts)):
+        try:
+            result, st = run_one(r)
+        except Bailout:
+            st = last_state["st"]
+            if st is None:
+                raise SystemExit("interrupted before the first iteration")
+            result = _unpack_state(args, s, st, r, dev)
+        # NaN-safe best (lower mean NLL wins; NaN never beats finite)
+        f = float(st.f)
+        key_ = (not math.isfinite(f), f if math.isfinite(f) else 0.0)
+        if best is None or key_ < best[0]:
+            best = (key_, result, st, r)
+        if args.verbose and args.restarts > 1:
+            print(f"restart {r}: objective {f:.6f} "
+                  f"(best {float(best[2].f):.6f})", file=sys.stderr)
+        if stopped():
+            break
+    return best
+
+
+def _unpack_state(args, s, st, r, dev):
     """(kernel, z, sigma2 or the dispersion, the warp or the cutpoint raws)
-    of a bailed-out optimizer state."""
+    of an optimizer state from start r: a bailed-out extension fit's, or
+    the final state that the ranks of -trainer sharded hand back."""
     from .models.warped import default_warp_params, make_warped_pack
     from .optim import extend_pack, make_pack
 
-    params0, z0 = start(r)
+    params0, z0 = _start(args, s, r)
     if args.classify or args.poisson or args.binomial or args.ordinal:
         pack = make_pack(params0, z0, 1.0, learn_sigma2=False)
         if not args.ordinal:

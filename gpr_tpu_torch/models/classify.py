@@ -177,16 +177,12 @@ def no_sigma2(pack, what: str):
             "make_pack(..., learn_sigma2=False)")
 
 
-def no_mesh(mesh, what: str):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...) is not ported to gpr_tpu_torch yet "
-            "(ROADMAP.md, queue 1 item 13)")
-
-
-def fit_laplace(objective, pack, data, normalize, n, **fit_kwargs):
+def fit_laplace(objective, pack, data, normalize, n, mesh=None,
+                **fit_kwargs):
     """The packed device L-BFGS over ``-scale * objective(x, *data)``
-    (``optim.fit_packed_objective``); returns the final state."""
+    (``optim.fit_packed_objective``); returns the final state.  With
+    ``mesh`` the objective is a sharded one, replicated on every rank of
+    the mesh, and its gradient ``parallel.spmd.sharded_value_and_grad``'s."""
     from ..optim.lbfgs_device import fit_packed_objective, value_and_grad
 
     scale = 1.0 / n if normalize else 1.0
@@ -194,8 +190,15 @@ def fit_laplace(objective, pack, data, normalize, n, **fit_kwargs):
     def neg(x, *data):
         return -scale * objective(x, *data)
 
-    return fit_packed_objective(value_and_grad(neg), pack, data,
-                                **fit_kwargs)
+    if mesh is None:
+        fg = value_and_grad(neg)
+    else:
+        import functools
+
+        from ..parallel.spmd import sharded_value_and_grad
+
+        fg = functools.partial(sharded_value_and_grad, mesh, neg)
+    return fit_packed_objective(fg, pack, data, **fit_kwargs)
 
 
 def fit_classify(X, y, pack, *, newton_iters: int = 15,
@@ -204,18 +207,33 @@ def fit_classify(X, y, pack, *, newton_iters: int = 15,
     """Hyper and inducing training of the Laplace classifier with the
     device L-BFGS.  The JAX ``fit_classify(family, ...)`` minus ``family``:
     the pack's kernel class is it.  Build ``pack`` with
-    ``learn_sigma2=False``.  ``block_size`` streams the Newton; ``mesh``
-    (JAX's data-parallel path) is not ported.  Returns (kernel, z, state)."""
+    ``learn_sigma2=False``.  ``block_size`` streams the Newton.  With
+    ``mesh`` (a ``parallel.DataMesh``; call it on every rank) the rows
+    shard over the mesh and the objective is
+    ``parallel.sharded_classify_log_evidence``; both options compose.
+    Returns (kernel, z, state)."""
     no_sigma2(pack, "classification")
-    no_mesh(mesh, "fit_classify")
+    if mesh is None:
+        def objective(x, X, y):
+            kernel, z, _ = pack.unpack(x)
+            return classify_log_evidence(kernel, z, X, y,
+                                         newton_iters=newton_iters,
+                                         jitter=jitter,
+                                         block_size=block_size)
 
-    def objective(x, X, y):
-        kernel, z, _ = pack.unpack(x)
-        return classify_log_evidence(kernel, z, X, y,
-                                     newton_iters=newton_iters,
-                                     jitter=jitter, block_size=block_size)
+        data = (X, y)
+    else:
+        from ..parallel.classify_sharded import sharded_classify_log_evidence
+        from ..parallel.sharded import shard_batch
 
-    st = fit_laplace(objective, pack, (X, y), normalize, X.shape[0],
-                     **fit_kwargs)
+        def objective(x, Xs, ys, mask):
+            kernel, z, _ = pack.unpack(x)
+            return sharded_classify_log_evidence(
+                kernel, mesh, z, Xs, ys, mask, newton_iters=newton_iters,
+                jitter=jitter, block_size=block_size)
+
+        data = shard_batch(mesh, X, y)
+    st = fit_laplace(objective, pack, data, normalize, X.shape[0],
+                     mesh=mesh, **fit_kwargs)
     kernel, z, _ = pack.unpack(st.x)
     return kernel, z, st

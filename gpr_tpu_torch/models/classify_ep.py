@@ -59,7 +59,7 @@ from ..numerics.linalg import (
     solve_tri,
     solve_tri_right,
 )
-from .classify import _fitc_prior, fit_laplace, no_mesh, no_sigma2, prior_up
+from .classify import _fitc_prior, fit_laplace, no_sigma2, prior_up
 from .ift import _identity, tmatmul, up
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -301,18 +301,30 @@ def fit_classify_ep(X, y, pack, *, n_sweeps: int = 20, damping: float = 0.5,
                     mesh=None, **fit_kwargs):
     """Hyper and inducing training on the EP evidence with the device
     L-BFGS: the JAX ``fit_classify_ep(family, ...)`` minus ``family`` (the
-    pack's kernel class is it).  Build ``pack`` with ``learn_sigma2=False``;
-    ``mesh`` (JAX's data-parallel path) is not ported.  Returns (kernel, z,
-    state)."""
+    pack's kernel class is it).  Build ``pack`` with ``learn_sigma2=False``.
+    With ``mesh`` (a ``parallel.DataMesh``; call it on every rank) the rows
+    shard over the mesh and the objective is
+    ``parallel.sharded_ep_log_evidence``.  Returns (kernel, z, state)."""
     no_sigma2(pack, "classification")
-    no_mesh(mesh, "fit_classify_ep")
+    if mesh is None:
+        def objective(x, X, y):
+            kernel, z, _ = pack.unpack(x)
+            return ep_log_evidence(kernel, z, X, y, n_sweeps=n_sweeps,
+                                   damping=damping, jitter=jitter)
 
-    def objective(x, X, y):
-        kernel, z, _ = pack.unpack(x)
-        return ep_log_evidence(kernel, z, X, y, n_sweeps=n_sweeps,
-                               damping=damping, jitter=jitter)
+        data = (X, y)
+    else:
+        from ..parallel.classify_sharded import sharded_ep_log_evidence
+        from ..parallel.sharded import shard_batch
 
-    st = fit_laplace(objective, pack, (X, y), normalize, X.shape[0],
-                     **fit_kwargs)
+        def objective(x, Xs, ys, mask):
+            kernel, z, _ = pack.unpack(x)
+            return sharded_ep_log_evidence(
+                kernel, mesh, z, Xs, ys, mask, n_sweeps=n_sweeps,
+                damping=damping, jitter=jitter)
+
+        data = shard_batch(mesh, X, y)
+    st = fit_laplace(objective, pack, data, normalize, X.shape[0],
+                     mesh=mesh, **fit_kwargs)
     kernel, z, _ = pack.unpack(st.x)
     return kernel, z, st

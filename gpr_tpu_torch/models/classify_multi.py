@@ -52,7 +52,7 @@ from ..numerics.linalg import (
     matmul,
     solve_tri,
 )
-from .classify import fit_laplace, no_mesh, no_sigma2, prior_up
+from .classify import fit_laplace, no_sigma2, prior_up
 from .ift import LINE_BISECTIONS, _identity, grads_or_zeros, tmatmul, up
 
 #: test points a chunk of the Monte Carlo class probabilities
@@ -476,24 +476,42 @@ def fit_classify_multi(X, labels, pack, n_classes: int, *,
     """Hyper and inducing training of the softmax Laplace classifier with
     the device L-BFGS: the JAX ``fit_classify_multi(family, ...)`` minus
     ``family``.  Build ``pack`` with ``learn_sigma2=False``.
-    ``block_size`` streams the Newton (``classify_multi_stream.py``);
-    ``mesh`` is not ported.  Returns (kernel, z, state)."""
+    ``block_size`` streams the Newton (``classify_multi_stream.py``).
+    With ``mesh`` (a ``parallel.DataMesh``; call it on every rank) the rows
+    shard over the mesh and the objective is
+    ``parallel.sharded_multiclass_log_evidence``; both options compose.
+    Returns (kernel, z, state)."""
     no_sigma2(pack, "classification")
-    no_mesh(mesh, "fit_classify_multi")
-    if block_size is not None:
-        from .classify_multi_stream import stream_multiclass_log_evidence
+    if mesh is not None:
+        from ..parallel.classify_sharded import (
+            sharded_multiclass_log_evidence,
+        )
+        from ..parallel.sharded import shard_batch
 
-    def objective(x, X, labels):
-        kernel, z, _ = pack.unpack(x)
+        def objective(x, Xs, ls, mask):
+            kernel, z, _ = pack.unpack(x)
+            return sharded_multiclass_log_evidence(
+                kernel, mesh, z, Xs, ls, n_classes, mask,
+                newton_iters=newton_iters, jitter=jitter,
+                block_size=block_size)
+
+        data = shard_batch(mesh, X, labels)
+    else:
         if block_size is not None:
-            return stream_multiclass_log_evidence(
-                kernel, z, X, labels, n_classes, block_size=block_size,
-                newton_iters=newton_iters, jitter=jitter)
-        return multiclass_log_evidence(kernel, z, X, labels, n_classes,
-                                       newton_iters=newton_iters,
-                                       jitter=jitter)
+            from .classify_multi_stream import stream_multiclass_log_evidence
 
-    st = fit_laplace(objective, pack, (X, labels), normalize, X.shape[0],
-                     **fit_kwargs)
+        def objective(x, X, labels):
+            kernel, z, _ = pack.unpack(x)
+            if block_size is not None:
+                return stream_multiclass_log_evidence(
+                    kernel, z, X, labels, n_classes, block_size=block_size,
+                    newton_iters=newton_iters, jitter=jitter)
+            return multiclass_log_evidence(kernel, z, X, labels, n_classes,
+                                           newton_iters=newton_iters,
+                                           jitter=jitter)
+
+        data = (X, labels)
+    st = fit_laplace(objective, pack, data, normalize, X.shape[0],
+                     mesh=mesh, **fit_kwargs)
     kernel, z, _ = pack.unpack(st.x)
     return kernel, z, st

@@ -36,7 +36,6 @@ from .classify import (
     fit_laplace,
     latent_moments,
     mode_factor,
-    no_mesh,
     no_sigma2,
 )
 from .ift import (
@@ -215,9 +214,10 @@ def fit_ordinal(X, y, pack, cut_raw0, *, newton_iters: int = 20,
     """Joint hyper, inducing and cutpoint training on the ordinal-Laplace
     evidence.  ``pack`` carries ``learn_sigma2=False`` (the latent scale is
     the kernel amplitude's against unit probit noise); the cutpoint raws
-    are appended by ``optim.pack.extend_pack``.  ``mesh`` (JAX's
-    data-parallel path) is not ported.  Returns (kernel, z, cut_raw,
-    state)."""
+    are appended by ``optim.pack.extend_pack``.  ``mesh`` (a
+    ``parallel.DataMesh``; call it on every rank) switches to the
+    data-parallel objective ``parallel.sharded_ordinal_log_evidence``.
+    Returns (kernel, z, cut_raw, state)."""
     from ..optim.pack import extend_pack
 
     no_sigma2(pack, "the ordinal likelihood")
@@ -225,16 +225,28 @@ def fit_ordinal(X, y, pack, cut_raw0, *, newton_iters: int = 20,
         raise ValueError(
             "fit_ordinal streams per shard via mesh=... alone; block_size "
             "composes with the single-device path only")
-    no_mesh(mesh, "fit_ordinal")
     ext = extend_pack(pack, torch.as_tensor(cut_raw0))
+    if mesh is None:
+        def objective(x, X, y):
+            kernel, z, _ = ext.unpack(x)
+            return ordinal_log_evidence(kernel, z, X, y,
+                                        ext.unpack_extra(x),
+                                        newton_iters=newton_iters,
+                                        jitter=jitter, block_size=block_size)
 
-    def objective(x, X, y):
-        kernel, z, _ = ext.unpack(x)
-        return ordinal_log_evidence(kernel, z, X, y, ext.unpack_extra(x),
-                                    newton_iters=newton_iters,
-                                    jitter=jitter, block_size=block_size)
+        data = (X, y)
+    else:
+        from ..parallel.classify_sharded import sharded_ordinal_log_evidence
+        from ..parallel.sharded import shard_batch
 
-    st = fit_laplace(objective, ext, (X, y), normalize, X.shape[0],
-                     **fit_kwargs)
+        def objective(x, Xs, ys, mask):
+            kernel, z, _ = ext.unpack(x)
+            return sharded_ordinal_log_evidence(
+                kernel, mesh, z, Xs, ys, ext.unpack_extra(x), mask,
+                newton_iters=newton_iters, jitter=jitter)
+
+        data = shard_batch(mesh, X, y)
+    st = fit_laplace(objective, ext, data, normalize, X.shape[0],
+                     mesh=mesh, **fit_kwargs)
     kernel, z, _ = ext.unpack(st.x)
     return kernel, z, ext.unpack_extra(st.x), st

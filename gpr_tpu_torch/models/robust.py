@@ -174,32 +174,79 @@ def fit_t(X, y, pack, *, nu: float = 4.0, n_em: int = 6, e_sweeps: int = 3,
     with the current weights) alternating with mean-field E-steps.  The
     JAX ``fit_t(family, ...)`` minus ``family``: the pack's kernel class is
     it.  ``pack`` must learn sigma2 (the t scale).  ``block_size`` streams
-    both steps.  ``mesh`` (JAX's data-parallel path) is not ported.
-    Returns (kernel, z, sigma2, lam_hat, state)."""
+    both steps.  ``mesh`` (a ``parallel.DataMesh``; call it on every rank)
+    runs both steps data-parallel (``parallel.sharded_hetero_log_evidence``
+    and ``sharded_t_moments``); lam_hat then comes back gathered in row
+    order.  Returns (kernel, z, sigma2, lam_hat, state)."""
     if not pack.learn_sigma2:
         raise ValueError(
             "fit_t learns the t scale through the pack's sigma2 slot: "
             "build the pack with learn_sigma2=True"
         )
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_t(mesh=...) is not ported to gpr_tpu_torch yet (ROADMAP.md, "
-            "queue 1 item 13)")
+    if mesh is not None and block_size is not None:
+        raise ValueError(
+            "fit_t streams per shard via mesh=... alone; block_size "
+            "composes with the single-device path only")
     from ..optim.lbfgs_device import fit_packed_objective, value_and_grad
-    from .streaming import streaming_log_evidence
 
-    scale = 1.0 / X.shape[0] if normalize else 1.0
+    n = X.shape[0]
+    scale = 1.0 / n if normalize else 1.0
 
-    def neg(x, X, y, lam):
-        kernel, z, sigma2 = pack.unpack(x)
-        if block_size is not None:
-            return -scale * streaming_log_evidence(
-                kernel, z, sigma2 / lam, X, y, variational=variational,
+    if mesh is not None:
+        if variational:
+            raise ValueError(
+                "fit_t(mesh=...) implements the standard FITC objective "
+                "only; drop variational=True")
+        import functools
+
+        from ..parallel.classify_sharded import (
+            sharded_hetero_log_evidence,
+            sharded_t_moments,
+        )
+        from ..parallel.sharded import gather_rows, shard_batch
+        from ..parallel.spmd import sharded_value_and_grad
+
+        X, y, mask = shard_batch(mesh, X, y)
+
+        def neg(x, X, y, lam):
+            kernel, z, sigma2 = pack.unpack(x)
+            return -scale * sharded_hetero_log_evidence(
+                kernel, mesh, z, sigma2 / lam, X, y, mask, jitter=jitter)
+
+        fg = functools.partial(sharded_value_and_grad, mesh, neg)
+
+        def e_step(kernel, z, sigma2, lam):
+            mu, var = sharded_t_moments(kernel, mesh, z, sigma2, X, y, lam,
+                                        mask, jitter=jitter)
+            new = t_lambda_update(y, mu, var, sigma2, nu)
+            return torch.where(mask > 0.0, new, 1.0)
+
+        def finish(lam):
+            return gather_rows(mesh, lam, n)
+    else:
+        from .streaming import streaming_log_evidence
+
+        def neg(x, X, y, lam):
+            kernel, z, sigma2 = pack.unpack(x)
+            if block_size is not None:
+                return -scale * streaming_log_evidence(
+                    kernel, z, sigma2 / lam, X, y, variational=variational,
+                    jitter=jitter, block_size=block_size)
+            return -scale * log_evidence(kernel, z, sigma2 / lam, X, y,
+                                         variational=variational,
+                                         jitter=jitter)
+
+        fg = value_and_grad(neg)
+
+        def e_step(kernel, z, sigma2, lam):
+            mu, var, _ = t_posterior_moments(
+                kernel, z, sigma2, X, y, lam, variational=variational,
                 jitter=jitter, block_size=block_size)
-        return -scale * log_evidence(kernel, z, sigma2 / lam, X, y,
-                                     variational=variational, jitter=jitter)
+            return t_lambda_update(y, mu, var, sigma2, nu)
 
-    fg = value_and_grad(neg)
+        def finish(lam):
+            return lam
+
     lam = torch.ones_like(y, dtype=X.dtype)
     cur, st = pack, None
     for _ in range(n_em):
@@ -208,13 +255,10 @@ def fit_t(X, y, pack, *, nu: float = 4.0, n_em: int = 6, e_sweeps: int = 3,
         kernel, z, sigma2 = pack.unpack(st.x)
         with torch.no_grad():
             for _ in range(e_sweeps):
-                mu, var, _ = t_posterior_moments(
-                    kernel, z, sigma2, X, y, lam, variational=variational,
-                    jitter=jitter, block_size=block_size)
-                lam = t_lambda_update(y, mu, var, sigma2, nu)
+                lam = e_step(kernel, z, sigma2, lam)
         cur = dataclasses.replace(cur, x0=st.x)  # warm-start the next M-step
     kernel, z, sigma2 = pack.unpack(st.x)
-    return kernel, z, sigma2, lam, st
+    return kernel, z, sigma2, finish(lam), st
 
 
 def t_predict(kernel, z, sigma2, X, y, lam, Xstar, *, nu: float = 4.0,

@@ -30,6 +30,7 @@ from torch_laplace import (
     setup,
     torch_value_and_grad,
 )
+from torch_spmd import check_mesh_fit
 
 D = setup()
 X, Z, Y = D["X"], D["Z"], D["classify"]
@@ -115,9 +116,8 @@ def test_fit_classify_matches_jax():
 def test_fit_classify_refuses():
     with pytest.raises(ValueError, match="learn_sigma2=False"):
         tc.fit_classify(t(X), t(Y), make_pack(kernel(), t(Z), 1.0))
-    pack = make_pack(kernel(), t(Z), 1.0, learn_sigma2=False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tc.fit_classify(t(X), t(Y), pack, mesh=object())
+    # mesh= runs the data-parallel fit: P = 2 matches one device
+    check_mesh_fit("classify", t(X), t(Y), t(Z), max_iter=2)
     with pytest.raises(ValueError, match="grad_impl"):
         tc.classify_log_evidence(kernel(), t(Z), t(X), t(Y),
                                  grad_impl="bogus")

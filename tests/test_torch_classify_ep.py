@@ -38,6 +38,7 @@ from torch_laplace import (  # noqa: F401  (one_torch_thread: autouse)
     setup,
     torch_value_and_grad,
 )
+from torch_spmd import check_mesh_fit
 
 D = setup()
 X, Z, Y, MASK = D["X"], D["Z"], D["classify"], D["mask"]
@@ -143,9 +144,8 @@ def test_fit_classify_ep_matches_jax(jref):
 def test_fit_classify_ep_refuses():
     with pytest.raises(ValueError, match="learn_sigma2=False"):
         te.fit_classify_ep(t(X), t(Y), make_pack(kernel(), t(Z), 1.0))
-    pack = make_pack(kernel(), t(Z), 1.0, learn_sigma2=False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        te.fit_classify_ep(t(X), t(Y), pack, mesh=object())
+    # mesh= runs the data-parallel fit: P = 2 matches one device
+    check_mesh_fit("ep", t(X), t(Y), t(Z), max_iter=2, n_sweeps=SWEEPS)
     with pytest.raises(ValueError, match="grad_impl"):
         te.ep_log_evidence(kernel(), t(Z), t(X), t(Y), grad_impl="ift")
 

@@ -40,6 +40,7 @@ from torch_laplace import (  # noqa: F401  (one_torch_thread: autouse)
     setup,
     torch_value_and_grad,
 )
+from torch_spmd import check_mesh_fit
 
 D = setup()
 X, Z, MASK, XS = D["X"], D["Z"], D["mask"], D["Xs"]
@@ -213,9 +214,9 @@ def test_fit_classify_multi_refuses():
     with pytest.raises(ValueError, match="learn_sigma2=False"):
         tm.fit_classify_multi(t(X), _lab(), make_pack(kernel(), t(Z), 1.0),
                               C)
-    pack = make_pack(kernel(), t(Z), 1.0, learn_sigma2=False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tm.fit_classify_multi(t(X), _lab(), pack, C, mesh=object())
+    # mesh= runs the data-parallel fit: P = 2 matches one device
+    check_mesh_fit("multi", t(X), _lab(), t(Z), max_iter=2,
+                   newton_iters=STEPS)
     for fn in (tm.multiclass_log_evidence, tms.stream_multiclass_log_evidence):
         with pytest.raises(ValueError, match="grad_impl"):
             fn(kernel(), t(Z), t(X), _lab(), C, grad_impl="stationary")

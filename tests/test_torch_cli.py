@@ -8,8 +8,9 @@ device`` (dense and streaming), ``-restarts``, ``-polish`` and the sparse
 ``-loo``; ``-cmd test`` prints the same text whichever package wrote the
 artifact and whichever serves it; ``-checkpoint``/``-resume`` lands
 bit-equal on the uninterrupted run; bad command lines get the JAX
-package's messages and the flags of modules not ported yet (-trainer
-sharded, -devices) exit naming their ROADMAP.md item.  The Laplace modes:
+package's messages and the 2-D mesh (-devices DxM), not ported yet, exits
+naming its ROADMAP.md item (-trainer sharded -devices N:
+``test_torch_cli_parallel.py``).  The Laplace modes:
 ``test_torch_cli_laplace.py``; EP and multi-class:
 ``test_torch_cli_classify.py``; the iterative exact GP (-exact -cg):
 ``test_torch_cli_cg.py``.  The port's CSV binding is held against the JAX
@@ -409,8 +410,9 @@ def test_test_messages(data, tmp_path):
 
 
 NOT_PORTED = {
-    "-trainer sharded": (["-trainer", "sharded"], 13),
-    "-devices": (["-trainer", "sharded", "-devices", "2"], 13),
+    "-devices 2x2": (["-trainer", "sharded", "-devices", "2x2"], 13),
+    "-trainer sharded -devices 1x2": (["-trainer", "sharded", "-devices",
+                                       "1x2"], 13),
 }
 
 

@@ -26,7 +26,8 @@ NEWER = ("models/fitc.py", "optim/lbfgs.py", "optim/train.py",
          "models/ordinal.py", "models/classify_ep.py",
          "models/classify_multi.py", "models/classify_multi_stream.py",
          "models/iterative.py", "optim/hmc.py", "testing.py", "utils.py",
-         "viz.py")
+         "viz.py", "parallel/spmd.py", "parallel/sharded.py",
+         "parallel/classify_sharded.py", "parallel/iter_sharded.py")
 
 
 def _jax_imports(path):
@@ -94,6 +95,8 @@ def test_import_loads_no_jax():
         "predict_hmc_mixture)\n"
         "import gpr_tpu_torch.testing, gpr_tpu_torch.utils, "
         "gpr_tpu_torch.viz\n"
+        "from gpr_tpu_torch.parallel import (run_spmd, fit_sharded, "
+        "sharded_classify_log_evidence, sharded_iter_solve)\n"
         "assert 'matplotlib' not in sys.modules or 'matplotlib' in before\n"
         "assert gpr_tpu_torch.io.native.get_lib() is not None\n"
         "new = sorted(set(sys.modules) - before)\n"

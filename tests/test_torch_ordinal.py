@@ -32,6 +32,7 @@ from torch_laplace import (
     setup,
     torch_value_and_grad,
 )
+from torch_spmd import check_mesh_fit
 
 D = setup()
 X, Z = D["X"], D["Z"]
@@ -151,11 +152,11 @@ def test_fit_ordinal_matches_jax():
 
 
 def test_fit_ordinal_refuses():
-    pack = make_pack(kernel(), t(Z), 1.0, learn_sigma2=False)
     with pytest.raises(ValueError, match="learn_sigma2=False"):
         to.fit_ordinal(t(X), _yi("torch"), make_pack(kernel(), t(Z), 1.0),
                        t(CUT_RAW))
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        to.fit_ordinal(t(X), _yi("torch"), pack, t(CUT_RAW), mesh=object())
+    # mesh= runs the data-parallel fit: P = 2 matches one device
+    check_mesh_fit("ordinal", t(X), _yi("torch"), t(Z), max_iter=2,
+                   newton_iters=STEPS, cut_raw0=t(CUT_RAW))
     with pytest.raises(ValueError, match="n_classes >= 2"):
         to.default_cutpoint_raw(1)

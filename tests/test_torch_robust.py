@@ -27,6 +27,7 @@ from gpr_tpu_torch.models import robust as trobust
 from gpr_tpu_torch.models import streaming as tst
 from gpr_tpu_torch.optim import make_pack
 from torch_ext import F64, close, t
+from torch_spmd import check_mesh_fit
 
 JP = jk.SeIso.Params(log_ell=jnp.asarray(0.2), log_sf2=jnp.asarray(0.3))
 
@@ -163,9 +164,8 @@ def test_m_step_gradients_match_jax(block_size):
 
 def test_fit_t_refuses_mesh():
     X, Z, y, _ = _setup()
-    pack = make_pack(_kernel(), t(Z), 0.4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        trobust.fit_t(t(X), t(y), pack, mesh=object())
+    # mesh= runs the data-parallel fit: P = 2 matches one device
+    check_mesh_fit("robust", t(X), t(y), t(Z), n_em=2, m_step_iters=2)
     with pytest.raises(ValueError, match="learn_sigma2=True"):
         trobust.fit_t(t(X), t(y), make_pack(_kernel(), t(Z), 0.4,
                                             learn_sigma2=False))
