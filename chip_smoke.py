@@ -7,9 +7,10 @@ the Gaussian-likelihood extensions (warped, online, PITC, Student-t, exact,
 batched tasks), the Laplace likelihood families (logit, Poisson, binomial,
 NB2, ordinal), EP and the softmax multi-class Laplace, the iterative exact
 GP, the HMC hyper posterior, data-parallel training and serving over
-torch.distributed ranks and the command-line trainer/predictor, once on
-one NVIDIA GPU (the parallel phase's ranks share it over gloo; with a card
-for each rank they take NCCL).
+torch.distributed ranks, the 2-D (data x model) mesh and the command-line
+trainer/predictor, once on one NVIDIA GPU (the parallel and mesh2d
+phases' ranks share it over gloo; with a card for each rank they take
+NCCL).
 
     python3 chip_smoke.py
 
@@ -197,7 +198,8 @@ Phases, each printed on its own line:
    value and gradient (log_ell, log_sf2, z) dense and streaming at block
    8,192 over the 1M rows, each in f32 against its f64 twin on the card
    (the section 2 bounds: evidence 2e-5, each gradient group 1e-3),
-   timed, with its bound (``classify_bound``) and peak memory; Poisson,
+   timed (the streaming legs once after a warm-up), with its bound
+   (``classify_bound``) and peak memory; Poisson,
    binomial (1..5 trials) and NB2 (r = 2, its gradient included) counts
    drawn from default_rng(5) over the latent sin(x0 + x1), and bench's
    ordinal leg (K = 4, labels digitize(x0 + x1, [-1, 0, 1]), cut_raw
@@ -277,7 +279,28 @@ Phases, each printed on its own line:
    over the iterative phase's problem (tol 1e-3, its true relres <= 1e-3,
    alpha within 1e-2 of the single-device solve's), and whether the ring's
    send/recv staged through the host.
-22. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
+22. mesh2d -- ``parallel/mesh2d.py`` and ``dist_chol.py`` at bench's full
+   width on a 2x2 mesh of MESH2D_RANKS = 4 gloo ranks sharing the card
+   (bench's draw and model, f32, block 8,192), against the single-device
+   path computed first in this process: (a) value and gradient of
+   ``sharded_log_evidence_2d`` with the replicated epilogue, the
+   distributed epilogue and the fully distributed inducing state
+   (whitened), each within 2e-5 (evidence) and 1e-3 (each gradient group)
+   of ``streaming_log_evidence``'s step but what MESH2D_F32_NOT_HELD
+   names (the fully distributed mode's z gradient), ms an evaluation with
+   the SM clock and power; (b) the f64 modes (replicated and distributed
+   epilogue on the raw Gram, the fully distributed raw and whitened
+   factorizations) on bench's first 100,000 rows within 1e-8 of the
+   single-device f64 step on the card; (c) ``fit_sharded_2d`` for 5
+   iterations, x bit-equal on the four ranks, its mean NLL within 1e-4 of
+   ``fit``'s; (d) ``fully_distributed_predict`` conditioned on and serving
+   the 1M rows, in f64 and f32 (its means not held), against
+   ``predict_means_blocked`` (1e-5 of the 2-norm of |Knm| |coeffs|) and
+   ``predict_variances_blocked`` (1e-4); (e) #1-#4
+   launched 0 times in every rank over (a) and (c); and the collectives
+   staged through the host.  (f), the CLI's -trainer sharded -devices 2x2,
+   runs beside the cli phase's trainings (below).
+23. cli -- ``python3 -m gpr_tpu_torch.cli`` in subprocesses on CSVs of
    bench's draw (the first 200,000 rows of X with the fit phase's targets;
    rows 200,000-299,999 to test on), se_fat with -n-inducing 300 -dim-red 8
    -log-het-sked -5 -multiscale -inducing-init first -seed 0: (a) the host
@@ -303,30 +326,34 @@ Phases, each printed on its own line:
    -n-inducing 300 -trainer device -max-iter 2) on the same rows with the
    laplace phase's targets (-classify: yf > 0 of the fit phase's), and
    -classify -approx ep (the same labels) and -classify on bench's
-   multi-class labels, dense and -block-size 16384, the nine trainings
-   side by side on the card (and, beside (d)-(g), -exact -cg -n-inducing
-   64 -max-iter 5 on the first EXACT_ROWS rows, whose -cmd test prints the
-   CLI_TEST means and, with -with-stddev, the first CLI_CG_STDDEV rows'
-   CG standard deviations, every mean equal, as printed, to the library's
-   predict_means_iter on the artifact; and -trainer sharded -devices 2
-   -block-size 16384 -max-iter 5 with (b)'s other flags, whose hypers must
-   lie within 1e-6 relative of (b)'s uninterrupted run's), then their -cmd
-   test -with-stddev side by
-   side: 100,000 finite lines each, every line but its stddev column
-   (multi-class: every whole line) equal, as printed, to the library's
-   latent posterior on the artifact through the model's link (EP's exact
-   probit predictive; multi-class: multiclass_predict_from_state with a
-   generator seeded 0, and the latent stddevs) (``library_laplace``).  Each
-   command's wall time (the trainings of (d)-(g) run side by side, and
-   so do the tests of (c)-(g) after the Laplace legs), iterations and evaluations (the device trainer prints
-   them), the log evidence (recomputed here in f64) and SMSE, which CSV
-   parser ran, and the wall time of -cmd test on one row (what every
-   command pays to start).
+   multi-class labels, dense and -block-size 16384; (i) -exact -cg
+   -n-inducing 64 -max-iter 5 on the first EXACT_ROWS rows, whose -cmd
+   test prints the CLI_TEST means and, with -with-stddev, the first
+   CLI_CG_STDDEV rows' CG standard deviations, every mean equal, as
+   printed, to the library's predict_means_iter on the artifact; (j)
+   -trainer sharded -devices 2 -max-iter 5 and (the mesh2d phase's (f))
+   -devices 2x2 -max-iter 2, -block-size 16384 with (b)'s other flags,
+   whose hypers must lie within 1e-6 relative of (b)'s uninterrupted run's
+   and of its checkpointed -max-iter 2 run's, and the 2x2 artifact served
+   as in (c).  The Laplace tests print 100,000 finite lines each, every
+   line but its stddev column (multi-class: every whole line) equal, as
+   printed, to the library's latent posterior on the artifact through the
+   model's link (EP's exact probit predictive; multi-class:
+   multiclass_predict_from_state with a generator seeded 0, and the
+   latent stddevs) (``library_laplace``).  The processes run in four
+   waves side by side on the card: (a) and (b)'s two first trainings;
+   then, after one -cmd test on one row alone (what every command pays to
+   start), the resumed training with (d)-(g), (i) and (j); then (h); then
+   every test.
+   Each command's wall time, iterations and evaluations (the device
+   trainer prints them), the log evidence (recomputed here in f64) and
+   SMSE, and which CSV parser ran.
 Timings: median of 5 after a warm-up, host clock around synchronised
 calls, or CUDA events where named (the chain and its torch.matmul
 yardstick: median of 10, in two turns each); one run for the trainers.
 
-The line before the last is a JSON object of the kernels (each with its
+A ``phase seconds:`` line gives each phase's wall time.  The line before
+the last is a JSON object of the kernels (each with its
 bound: the larger of its flops at the 67 TFLOP/s FP32 peak and its bytes,
 each input read and each output written once, at 3.35 TB/s); the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check raises (exit code
@@ -463,12 +490,16 @@ from gpr_tpu_torch.models.warped import (
 )
 from gpr_tpu_torch.parallel import (
     fit_sharded,
+    fit_sharded_2d,
+    fully_distributed_predict,
+    make_mesh_2d,
     run_spmd,
     shard_batch,
     sharded_classify_log_evidence,
     sharded_grad,
     sharded_iter_solve,
     sharded_log_evidence,
+    sharded_log_evidence_2d,
     sharded_log_evidence_tsqr,
     sharded_predict_means,
     sharded_predict_variances,
@@ -2757,6 +2788,9 @@ LAPLACE_STEPS = 15  # bench's classify and ordinal legs
 LAPLACE_ROWS = 100_000  # streaming legs, gradient routes, fits, predictions
 LAPLACE_FIT_ITERS = 5
 LAPLACE_SEED = 5  # the counts' numpy draw
+# the streaming legs take seconds an evaluation: timed once after the
+# warm-up (the script's time limit)
+LAPLACE_STREAM_REPS = 1
 NB_R = 2.0  # the NB2 dispersion of the draw and of the evaluation
 ORD_EDGES = (-1.0, 0.0, 1.0)  # bench's ordinal labels: K = 4
 ORD_CUT_RAW = (-1.0, 0.0, 0.0)
@@ -3087,7 +3121,7 @@ def laplace_phase(dev, card: str, data) -> None:
     laplace_ablation("classify dense", "classify", labels["classify"], X32,
                      Z, twin, card)
     laplace_vs_twin("classify stream", "classify", labels["classify"], X32,
-                    Z, BLOCK, dev, card, reps=EXT_REPS)
+                    Z, BLOCK, dev, card, reps=LAPLACE_STREAM_REPS)
     for name in ("poisson", "binomial", "negbin", "ordinal"):
         twin = laplace_vs_twin(f"{name} dense", name, labels[name], X32, Z,
                                None, dev, card, reps=EXT_REPS)
@@ -3097,7 +3131,7 @@ def laplace_phase(dev, card: str, data) -> None:
         rows = laplace_rows(labels[name], LAPLACE_ROWS)
         laplace_vs_twin(f"{name} stream {LAPLACE_ROWS}", name, rows,
                         X32[:LAPLACE_ROWS], Z, BLOCK, dev, card,
-                        reps=EXT_REPS)
+                        reps=LAPLACE_STREAM_REPS)
     _, launches = counted("laplace fits and predictions", lambda: (
         laplace_ift_vs_unroll(dev, card, X32, Z, labels),
         laplace_fits(dev, card, X32, Z, labels),
@@ -4125,12 +4159,267 @@ def parallel_phase(dev, card: str, data) -> None:
     log(f"parallel phase: {time.perf_counter() - t_phase:.2f} s ({card})")
 
 
+MESH2D_SHAPE = (2, 2)
+MESH2D_RANKS = MESH2D_SHAPE[0] * MESH2D_SHAPE[1]  # gloo ranks on the card
+MESH2D_MODES = {  # f32, bench's full width; inducing: whitened by default
+    "replicated": {},
+    "epilogue": {"epilogue": "distributed"},
+    "inducing": {"inducing": "distributed"},
+}
+MESH2D_F64_MODES = {  # the raw-Gram modes, f64
+    "replicated": {},
+    "epilogue": {"epilogue": "distributed"},
+    "inducing-raw": {"inducing": "distributed", "factorization": "raw"},
+    "inducing-whitened": {"inducing": "distributed",
+                          "factorization": "whitened"},
+}
+MESH2D_F64_ROWS = 100_000
+MESH2D_TIMES = 2  # evaluations timed a mode, after a warm-up
+# what f32 cannot resolve at 1M rows (measured on the H100 at bench's
+# width), held in f64 by (b) and (d): the fully distributed mode forms
+# Km^-1 and rowsq(V) = rowdot(Knm, Knm Km^-1) in f32 (its z gradient
+# 3.3e-3 from the step's); fully_distributed_predict factors the raw
+# B = Km + Knm' Knm / s in f32 (its means 2.4e-5 of || |Knm| |coeffs| ||)
+MESH2D_F32_NOT_HELD = {"inducing": ("z",), "predict": ("means",)}
+
+
+def mesh2d_value_and_grad(mesh, pack, data, kw):
+    """The 2-D evidence over this rank's rows and its gradient over the
+    packed hypers, in lock step over the whole mesh."""
+    def f(x):
+        kernel, z, s2 = pack.unpack(x)
+        return sharded_log_evidence_2d(kernel, mesh, z, s2, *data,
+                                       block_size=BLOCK, jitter=JITTER, **kw)
+
+    return sharded_value_and_grad(mesh, f, pack.x0)
+
+
+def all_launches(mesh, fn):
+    """fn() with every launch counter of this rank set to 0 just before it;
+    (fn's result, every rank's counts of the four wrappers just after)."""
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    out = fn()
+    torch.cuda.synchronize(mesh.device)
+    mine = torch.tensor([[w.launches for w in WRAPPERS.values()]],
+                        dtype=torch.float64, device=mesh.device)
+    return out, mesh.all.all_gather(mine).long().tolist()
+
+
+def mesh2d_ranks(world):
+    """(a)-(e) on each rank of the phase's world; rank 0's results."""
+    mesh = make_mesh_2d(*MESH2D_SHAPE)
+    dev = mesh.device
+    X32, y32, Z = bench_data(dev)
+    pack = par_model(dev, Z)
+    shards = shard_batch(mesh, X32, y32)
+    out = {"backend": mesh.backend, "launches": {}}
+    # (a), (e): one evaluation a mode counted in every rank, then timed
+    for name, kw in MESH2D_MODES.items():
+        def step(kw=kw):
+            return mesh2d_value_and_grad(mesh, pack, shards, kw)
+
+        out[f"vg/{name}"], out["launches"][name] = all_launches(mesh, step)
+        out[f"ms/{name}"], out[f"window/{name}"] = rank_median_ms(
+            mesh, step, reps=MESH2D_TIMES)
+    # (b) the f64 raw-Gram modes on the first MESH2D_F64_ROWS rows
+    pack64 = make_pack(*bench_model(dev, Z, torch.float64))
+    shards64 = shard_batch(mesh, X32[:MESH2D_F64_ROWS].double(),
+                           y32[:MESH2D_F64_ROWS].double())
+    for name, kw in MESH2D_F64_MODES.items():
+        t = time.perf_counter()
+        v, g = mesh2d_value_and_grad(mesh, pack64, shards64, kw)
+        out[f"f64/{name}"] = (v, g, time.perf_counter() - t)
+    # (c) training
+    yf = bench_targets(dev, X32)
+    fit_pack = make_pack(SeIso(LOG_ELL, LOG_SF2, device=dev,
+                               dtype=torch.float32),
+                         torch.as_tensor(Z, device=dev), 1.0)
+    t = time.perf_counter()
+    (*_, st), out["launches"]["fit"] = all_launches(
+        mesh, lambda: fit_sharded_2d(mesh, X32, yf, fit_pack,
+                                     variational=True, block_size=BLOCK,
+                                     max_iter=PAR_FIT_ITERS, epsabs=1e-4))
+    secs = time.perf_counter() - t
+    xs = mesh.all.all_gather(st.x[None])
+    out["fit"] = (float(st.f), st.n_iter, st.n_evals, secs,
+                  bool(torch.all(xs == xs[0])))
+    # (d) serving: conditioned on and predicting all 1M rows
+    kernel, z, _ = pack.unpack(pack.x0)
+    for dtype in (torch.float32, torch.float64):
+        k = SeIso.of(kernel.log_ell.to(dtype), kernel.log_sf2.to(dtype))
+        Xd = X32.to(dtype)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        mu, var = fully_distributed_predict(
+            k, mesh, z.detach().to(dtype), SIGMA2, Xd, y32.to(dtype), Xd,
+            block_size=BLOCK, jitter=JITTER)
+        torch.cuda.synchronize(dev)
+        out[f"predict/{dtype}"] = (mu, var, time.perf_counter() - t)
+    out["staged"] = mesh.staged
+    return out
+
+
+def single_f64_value_and_grad(dev, Z, X, y):
+    """The single-device f64 step on the card (the plain loop)."""
+    pack = make_pack(*bench_model(dev, Z, torch.float64))
+
+    def f(x):
+        kernel, z, s2 = pack.unpack(x)
+        return streaming.streaming_log_evidence(
+            kernel, z, s2, X, y, block_size=BLOCK, jitter=JITTER)
+
+    return pack, value_and_grad(f)(pack.x0)
+
+
+def single_serving(pack, X, y, dtype):
+    """predict_means_blocked and predict_variances_blocked of one card's
+    streaming_trained on all rows, and the 2-norm of |Knm| |coeffs| (the
+    size of the terms each mean sums, in f64)."""
+    kernel, z, s2 = pack.unpack(pack.x0)
+    k = SeIso.of(kernel.log_ell.detach().to(dtype),
+                 kernel.log_sf2.detach().to(dtype))
+    z = z.detach().to(dtype)
+    Xd, yd = X.to(dtype), y.to(dtype)
+    with torch.no_grad():
+        trained = streaming.streaming_trained(k, z, SIGMA2, Xd, yd,
+                                              jitter=JITTER, block_size=BLOCK)
+        model = trained.model
+        means = streaming.predict_means_blocked(k, model.inducing.z,
+                                                trained.coeffs, Xd,
+                                                block_size=BLOCK)
+        variances = streaming.predict_variances_blocked(
+            k, model.inducing.z, model.inducing.chol_km, model.r_mat, Xd,
+            SIGMA2, block_size=BLOCK)
+        k64 = SeIso.of(k.log_ell.double(), k.log_sf2.double())
+        c64, z64 = trained.coeffs.double().abs(), z.double()
+        scale = torch.cat([k64.k_cross(Xd[i:i + 65_536].double(), z64) @ c64
+                           for i in range(0, Xd.shape[0], 65_536)])
+    return means, variances, float(torch.linalg.norm(scale))
+
+
+def mesh2d_phase(dev, card: str, data) -> None:
+    """gpr_tpu_torch/parallel/mesh2d.py and dist_chol.py at bench's full
+    width on a 2x2 mesh of MESH2D_RANKS gloo ranks sharing the card:
+    (a)-(e) of the module docstring, each against the single-device path
+    computed here first; every number is read before any check fails."""
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    X32, y32, Z = data
+    backend = choose_backend("cuda", MESH2D_RANKS)
+    pack = par_model(dev, Z)
+    v_ref, g_ref = single_value_and_grad(pack, X32, y32)
+    rows = MESH2D_F64_ROWS
+    _, (v64_ref, g64_ref) = single_f64_value_and_grad(
+        dev, Z, X32[:rows].double(), y32[:rows].double())
+    yf = bench_targets(dev, X32)
+    fit_pack = make_pack(SeIso(LOG_ELL, LOG_SF2, device=dev,
+                               dtype=torch.float32),
+                         torch.as_tensor(Z, device=dev), 1.0)
+    t = time.perf_counter()
+    *_, st_ref = fit(X32, yf, fit_pack, variational=True,
+                     streaming_block_size=BLOCK, max_iter=PAR_FIT_ITERS,
+                     epsabs=1e-4)
+    fit_secs = time.perf_counter() - t
+    serving = {dtype: single_serving(pack, X32, y32, dtype)
+               for dtype in (torch.float32, torch.float64)}
+    log(f"mesh2d references on one card: value+grad f32 {float(v_ref):.3f}, "
+        f"f64 at {rows} rows {float(v64_ref):.6f}, fit {PAR_FIT_ITERS} "
+        f"iterations {fit_secs:.2f} s, serving f32 and f64 "
+        f"({time.perf_counter() - t_phase:.1f} s with the fit) ({card})")
+    torch.cuda.empty_cache()
+
+    sampler = clock_log()
+    try:
+        t = time.perf_counter()
+        res = run_spmd(mesh2d_ranks, MESH2D_RANKS)
+        world_secs = time.perf_counter() - t
+    finally:
+        samples = read_clock_log(sampler)
+    log(f"mesh2d world: {MESH2D_SHAPE[0]}x{MESH2D_SHAPE[1]} mesh, "
+        f"{MESH2D_RANKS} ranks, backend {res['backend']} (chosen "
+        f"{backend}); {world_secs:.1f} s with the ranks' start ({card})")
+    checks = [("mesh2d backend", res["backend"] == backend, res["backend"])]
+
+    # (a) each mode against the single-device f32 step
+    for name in MESH2D_MODES:
+        v, g = res[f"vg/{name}"]
+        rel_v = abs(float(v) - float(v_ref)) / abs(float(v_ref))
+        errs = {k: rel_norm(gg, w) for (k, gg), w in zip(
+            pack_groups(pack, g.to(dev)).items(),
+            pack_groups(pack, g_ref).values())}
+        t0, t1 = res[f"window/{name}"]
+        free = MESH2D_F32_NOT_HELD.get(name, ())
+        log(f"mesh2d {name} f32: evidence {float(v):.3f} against one card's "
+            f"{float(v_ref):.3f} (rel {rel_v:.2e}); grad rel "
+            + ", ".join(f"{k} {e:.2e}" + (" (not held in f32: held in f64 "
+                                          "by (b))" if k in free else "")
+                        for k, e in errs.items())
+            + f"; {res[f'ms/{name}']:.2f} ms an evaluation; "
+            f"{clock_window(samples, t0, t1)} ({card})")
+        held = [e for k, e in errs.items() if k not in free]
+        checks.append((f"mesh2d {name} f32", rel_v <= 2e-5
+                       and max(held) <= 1e-3,
+                       f"value rel {rel_v:.2e}, grads {errs}"))
+    # (b) the f64 modes against the single-device f64 step
+    for name in MESH2D_F64_MODES:
+        v, g, secs = res[f"f64/{name}"]
+        rel_v = abs(float(v) - float(v64_ref)) / abs(float(v64_ref))
+        rel_g = rel_norm(g.to(dev), g64_ref)
+        log(f"mesh2d {name} f64 at {rows} rows: evidence rel {rel_v:.2e}, "
+            f"gradient rel {rel_g:.2e} from one card's f64 step, "
+            f"{secs:.2f} s ({card})")
+        checks.append((f"mesh2d {name} f64", rel_v <= 1e-8 and rel_g <= 1e-8,
+                       f"value rel {rel_v:.2e}, gradient rel {rel_g:.2e}"))
+    # (c) training
+    f, n_iter, n_evals, secs, equal = res["fit"]
+    log(f"mesh2d fit_sharded_2d: {n_iter} iterations, {n_evals} "
+        f"evaluations, mean NLL {f:.6f} (fit on one card: "
+        f"{float(st_ref.f):.6f}, {st_ref.n_iter} iterations, "
+        f"{st_ref.n_evals} evaluations), x bit-equal on the {MESH2D_RANKS} "
+        f"ranks: {equal}; {secs:.2f} s = {1e3 * secs / n_evals:.1f} ms an "
+        f"evaluation (one card: {1e3 * fit_secs / st_ref.n_evals:.1f}) "
+        f"({card})")
+    checks.append(("mesh2d fit", equal and abs(f - float(st_ref.f)) <= 1e-4,
+                   f"x equal {equal}, f {f} against {float(st_ref.f)}"))
+    # (d) serving
+    for dtype, (means, variances, scale) in serving.items():
+        mu, var, secs = res[f"predict/{dtype}"]
+        e_mu = float(torch.linalg.norm(mu.to(dev).double()
+                                       - means.double())) / scale
+        e_var = rel_norm(var.to(dev), variances)
+        free = (MESH2D_F32_NOT_HELD["predict"] if dtype == torch.float32
+                else ())
+        log(f"mesh2d fully_distributed_predict {str(dtype)[6:]} at {N} "
+            f"points: means {e_mu:.2e} of || |Knm| |coeffs| ||"
+            + (" (not held in f32: held in f64 below)" if "means" in free
+               else "") + f", variances rel {e_var:.2e} against one card's "
+            f"blocked predictors; {secs:.2f} s ({card})")
+        checks.append((f"mesh2d predict {str(dtype)[6:]}",
+                       ("means" in free or e_mu <= 1e-5) and e_var <= 1e-4,
+                       f"means {e_mu:.2e}, variances {e_var:.2e}"))
+    # (e) launches
+    launches = res["launches"]
+    log(f"mesh2d launches per rank ({', '.join(WRAPPERS)}): "
+        + "; ".join(f"{k} {v}" for k, v in launches.items()))
+    checks.append(("mesh2d launches", all(
+        c == 0 for counts in launches.values() for rank in counts
+        for c in rank), f"{launches}"))
+    log(f"mesh2d collectives staged through the host (all ranks' rank 0): "
+        f"{res['staged'] or 'none'}")
+    log(f"mesh2d phase: {time.perf_counter() - t_phase:.2f} s ({card})")
+    for tag, ok, what in checks:
+        check(tag, ok, what)
+
+
 CLI_COMMON = ("-n-inducing", "300", "-dim-red", "8", "-log-het-sked", "-5",
               "-multiscale", "-inducing-init", "first", "-seed", "0",
               "-verbose")
 CLI_DEVICE = ("-trainer", "device", "-block-size", "16384")
 CLI_SHARDED = ("-trainer", "sharded", "-devices", str(PAR_RANKS),
                "-block-size", "16384")
+CLI_MESH2D = ("-trainer", "sharded", "-devices",
+              "{}x{}".format(*MESH2D_SHAPE), "-block-size", "16384")
 CLI_FAMILY = ("-kernel", "matern52", "-n-inducing", "300", "-inducing-init",
               "first", "-seed", "0", "-verbose")
 CLI_SM2 = ("-kernel", "sm2", *CLI_FAMILY[2:])
@@ -4186,17 +4475,18 @@ def cli_run(tmp, tag, argv, stdin_path):
     return secs, out, err
 
 
-def cli_sharded_leg(run, model, device_model, dev, Xtr, ytr, card) -> None:
-    """-trainer sharded -devices PAR_RANKS (its ranks sharing the card over
-    gloo, or a card each over NCCL): its report, and its hypers against the
-    -trainer device run's (same flags, -max-iter 5) within 1e-6
-    relative."""
+def cli_sharded_leg(tag, run, model, device_model, dev, Xtr, ytr,
+                    card) -> None:
+    """-trainer sharded -devices PAR_RANKS, or the 2-D mesh's DxM (its
+    ranks sharing the card over gloo, or a card each over NCCL): its
+    report, and its hypers against ``device_model``'s, the -trainer device
+    run with the same flags and -max-iter, within 1e-6 relative."""
     secs, _, err = run
-    cli_report("sharded", secs, err, model, dev, Xtr, ytr, card)
+    cli_report(tag, secs, err, model, dev, Xtr, ytr, card)
     rel = rel_norm(cli_hypers(model, dev), cli_hypers(device_model, dev))
-    log(f"cli sharded: final hypers rel {rel:.3e} from -trainer device's "
-        f"({card})")
-    check("cli sharded", rel <= 1e-6, f"hypers off by rel {rel:.3e}")
+    log(f"cli {tag}: final hypers rel {rel:.3e} from the -trainer device "
+        f"run {Path(device_model).stem}'s ({card})")
+    check(f"cli {tag}", rel <= 1e-6, f"hypers off by rel {rel:.3e}")
 
 
 def cli_artifact(path, dev):
@@ -4273,20 +4563,24 @@ def library_means(art, extra, kernel, z, xs) -> np.ndarray:
         .cpu().numpy()
 
 
-def cli_serve(tmp, runs, dev, card, cg_runs=()) -> None:
-    """-cmd test -with-stddev of each (tag, model, csv) of ``runs`` and the
-    -exact -cg tests of ``cg_runs`` ((tag, model, csv, flags)), the
-    processes side by side on the card, then each checked
-    (``cli_check_means``, ``cli_check_cg``)."""
+def cli_serve(tmp, runs, dev, card, cg_runs=(), laplace=()) -> None:
+    """-cmd test -with-stddev of each (tag, model, csv) of ``runs`` and of
+    ``laplace`` (the Laplace modes' artifacts) and the -exact -cg tests of
+    ``cg_runs`` ((tag, model, csv, flags)), the processes side by side on
+    the card, then each checked (``cli_check_means``, ``cli_check_cg``,
+    ``cli_check_laplace``)."""
     served = cli_side_by_side(tmp, [
         (f"test-{tag}", ("-cmd", "test", "-model", model, "-with-stddev"),
-         csv) for tag, model, csv in runs] + [
+         csv) for tag, model, csv in (*runs, *laplace)] + [
         (f"test-{tag}", ("-cmd", "test", "-model", model, *flags), csv)
         for tag, model, csv, flags in cg_runs])
     for (tag, model, csv), (secs, out, _) in zip(runs, served):
         cli_check_means(tag, model, csv, secs, out, dev, card)
+    for (tag, model, csv), (secs, out, _) in zip(laplace,
+                                                 served[len(runs):]):
+        cli_check_laplace(tag, model, csv, secs, out, dev, card)
     for (tag, model, csv, flags), (secs, out, _) in zip(
-            cg_runs, served[len(runs):]):
+            cg_runs, served[len(runs) + len(laplace):]):
         cli_check_cg(tag, model, csv, secs, out, dev, card, bool(flags))
 
 
@@ -4414,24 +4708,30 @@ def cli_side_by_side(tmp, runs) -> list:
                 stdin=fin, stdout=fout, stderr=subprocess.PIPE,
                 cwd=str(Path(__file__).resolve().parent))))
     results = []
-    for tag, out, t0, proc in procs:
-        err = proc.communicate(timeout=600)[1].decode()
-        secs = time.perf_counter() - t0
-        check(f"cli {tag}", proc.returncode == 0,
-              f"exit {proc.returncode}: {err[-2000:]}")
-        results.append((secs, out, err))
+    try:
+        for tag, out, t0, proc in procs:
+            err = proc.communicate(timeout=600)[1].decode()
+            secs = time.perf_counter() - t0
+            check(f"cli {tag}", proc.returncode == 0,
+                  f"exit {proc.returncode}: {err[-2000:]}")
+            results.append((secs, out, err))
+    finally:  # a failed command stops the others
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return results
 
 
-def cli_laplace_legs(tmp, dev, card, data, Xtr, test_csv) -> None:
-    """The Laplace modes (CLI_LAPLACE), each trained on the laplace phase's
-    labels of the training rows (the multi-class modes on bench's
-    multi-class labels) and served on the test rows; the nine trainings run
-    side by side, then the nine tests."""
+def cli_laplace_runs(tmp, dev, data, Xtr) -> list:
+    """The Laplace modes' trainings (CLI_LAPLACE) for ``cli_side_by_side``,
+    each on the laplace phase's labels of the training rows (the
+    multi-class modes on bench's multi-class labels), its CSV written
+    here."""
     labels = laplace_data(dev, data[0], data[1])
     labels["multi"] = multi_labels(data[0][:Xtr.shape[0]])
     yf = bench_targets(dev, data[0])
-    runs, models = [], []
+    runs = []
     for tag, (name, flags) in CLI_LAPLACE.items():
         csv = f"{tmp}/train_{name}.csv"
         if not Path(csv).exists():
@@ -4439,23 +4739,9 @@ def cli_laplace_legs(tmp, dev, card, data, Xtr, test_csv) -> None:
                 Xtr.cpu().numpy(),
                 *laplace_csv_columns(name, labels, Xtr.shape[0], yf)]),
                 fmt="%.9g", delimiter=",")
-        model = f"{tmp}/{tag}.npz"
-        runs.append((tag, ("-cmd", "train", "-model", model,
+        runs.append((tag, ("-cmd", "train", "-model", f"{tmp}/{tag}.npz",
                            *CLI_LAPLACE_BASE, *flags), csv))
-        models.append((tag, model))
-    t0 = time.perf_counter()
-    for (tag, _, _), (secs, _, err) in zip(runs, cli_side_by_side(tmp,
-                                                                  runs)):
-        cli_ext_report(tag, secs, err, card)
-    t1 = time.perf_counter()
-    served = cli_side_by_side(tmp, [
-        (f"test-{tag}", ("-cmd", "test", "-model", model, "-with-stddev"),
-         test_csv) for tag, model in models])
-    t2 = time.perf_counter()
-    for (tag, model), (secs, out, _) in zip(models, served):
-        cli_check_laplace(tag, model, test_csv, secs, out, dev, card)
-    log(f"cli laplace legs: {len(runs)} trainings side by side in "
-        f"{t1 - t0:.2f} s, their tests in {t2 - t1:.2f} s ({card})")
+    return runs
 
 
 def cli_coregionalization(err) -> np.ndarray:
@@ -4506,6 +4792,12 @@ def cli_cg_runs(tmp, model, test_csv, Xte) -> tuple:
 
 
 def cli_phase(dev, card: str, data) -> None:
+    """The command line in four waves of processes side by side on the
+    card: the host, device and checkpointed device trainers; then (after
+    one bare process alone) the resumed trainer with the other regression
+    and extension trainings; then the Laplace modes' trainings; then every
+    test.  (The exact GP's legs and the Laplace modes' dense trainings do
+    not fit the card's memory together.)"""
     # the commands' processes share the card: hand back what this process
     # holds in PyTorch's cache (the exact GP's leg takes ~30 GiB)
     torch.cuda.empty_cache()
@@ -4524,42 +4816,45 @@ def cli_phase(dev, card: str, data) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         train_csv, test_csv = f"{tmp}/train.csv", f"{tmp}/test.csv"
         icm_csv, icm_test_csv = f"{tmp}/train_icm.csv", f"{tmp}/test_icm.csv"
+        exact_csv = f"{tmp}/train_exact.csv"
         for path, cols in ((train_csv, [Xtr, ytr]), (test_csv, [Xte]),
                            (icm_csv, [Xtr_icm, ytr]),
-                           (icm_test_csv, [Xte_icm])):
+                           (icm_test_csv, [Xte_icm]),
+                           (exact_csv, [Xtr[:EXACT_ROWS], ytr[:EXACT_ROWS]])):
             np.savetxt(path, np.column_stack([
                 c.cpu().numpy() if torch.is_tensor(c) else c for c in cols]),
                 fmt="%.9g", delimiter=",")
+        laplace_runs = cli_laplace_runs(tmp, dev, data, Xtr)
         which = f"native {Path(parser._name).name}" if parser else "python"
         log(f"cli data: {CLI_TRAIN} training rows and {CLI_TEST} test rows "
-            f"of bench's draw, without and with its ICM task column, written "
-            f"in {time.perf_counter() - t0:.2f} s; csv parser: {which}")
+            f"of bench's draw, without and with its ICM task column, the "
+            f"Laplace modes' labels, written in "
+            f"{time.perf_counter() - t0:.2f} s; csv parser: {which}")
 
-        def train(tag, *flags, csv=train_csv, x=Xtr):
-            model = f"{tmp}/{tag}.npz"
+        def argv(tag, *flags):
             common = () if "-kernel" in flags else CLI_COMMON
-            secs, _, err = cli_run(tmp, tag, ("-cmd", "train", "-model",
-                                              model, *common, *flags), csv)
-            cli_report(tag, secs, err, model, dev, x, ytr, card)
-            return model, err
+            return ("-cmd", "train", "-model", f"{tmp}/{tag}.npz", *common,
+                    *flags)
 
-        host, _ = train("host", "-max-iter", "5")
-        full, _ = train("device", *CLI_DEVICE, "-max-iter", "5")
+        # wave 1: the host and device trainers, and the device trainer
+        # stopped by -max-iter 2 with a checkpoint
         ckpt = f"{tmp}/device.ckpt.npz"
-        train("device-part", *CLI_DEVICE, "-max-iter", "2", "-checkpoint",
-              ckpt)
-        resumed, _ = train("device-resumed", *CLI_DEVICE, "-max-iter", "5",
-                           "-checkpoint", ckpt, "-resume")
-        got, want = cli_hypers(resumed, dev), cli_hypers(full, dev)
-        rel = rel_norm(got, want)
-        same = ("bit-equal to" if torch.equal(got, want)
-                else f"rel {rel:.3e} from")
-        log(f"cli resume: final hypers {same} the uninterrupted device "
-            f"run's ({card})")
-        check("cli resume", rel <= 1e-6, f"hypers off by rel {rel:.3e}")
+        first = (("host", ("-max-iter", "5")),
+                 ("device", (*CLI_DEVICE, "-max-iter", "5")),
+                 ("device-part", (*CLI_DEVICE, "-max-iter", "2",
+                                  "-checkpoint", ckpt)))
+        t1 = time.perf_counter()
+        done = cli_side_by_side(tmp, [(tag, argv(tag, *flags), train_csv)
+                                      for tag, flags in first])
+        log(f"cli wave 1: {len(first)} trainings side by side in "
+            f"{time.perf_counter() - t1:.2f} s ({card})")
+        for (tag, _), (secs, _, err) in zip(first, done):
+            cli_report(tag, secs, err, f"{tmp}/{tag}.npz", dev, Xtr, ytr,
+                       card)
+        host, full = f"{tmp}/host.npz", f"{tmp}/device.npz"
 
-        # a process that does next to nothing: what every command pays to
-        # start (interpreter, torch, the card's context)
+        # a process that does next to nothing, alone: what every command
+        # pays to start (interpreter, torch, the card's context)
         one_row = f"{tmp}/one.csv"
         np.savetxt(one_row, Xte[:1], fmt="%.9g", delimiter=",")
         secs, _, _ = cli_run(tmp, "start", ("-cmd", "test", "-model", host),
@@ -4567,87 +4862,126 @@ def cli_phase(dev, card: str, data) -> None:
         log(f"cli start-up: {secs:.2f} s wall for -cmd test on one row "
             f"({card})")
 
-        # side by side: a base family other than se_fat, the spectral
-        # mixture (its keyless init from the data's spectrum) and the ICM
-        # model through the device trainer, and the Gaussian-likelihood
-        # extensions, -exact on the first EXACT_ROWS training rows
-        exact_csv = f"{tmp}/train_exact.csv"
-        np.savetxt(exact_csv, np.column_stack([
-            Xtr[:EXACT_ROWS].cpu().numpy(), ytr[:EXACT_ROWS].cpu().numpy()]),
-            fmt="%.9g", delimiter=",")
+        # wave 2: the resumed trainer beside a base family other than
+        # se_fat, the spectral mixture (its keyless init from the data's
+        # spectrum), the ICM model, the Gaussian-likelihood extensions
+        # (-exact on the first EXACT_ROWS training rows) and the sharded
+        # trainers (the 1-D mesh, and the mesh2d phase's (f): the 2-D
+        # mesh, stopped at -max-iter 2 and held against wave 1's
+        # device-part)
         fam_runs = (
             ("matern52", (*CLI_FAMILY, *CLI_DEVICE), train_csv, Xtr),
             ("sm2", (*CLI_SM2, *CLI_DEVICE), train_csv, Xtr),
             ("icm", (*CLI_ICM, *CLI_DEVICE), icm_csv, Xtr_icm))
         ext_runs = tuple((tag, flags, exact_csv if "-exact" in flags
                           else train_csv) for tag, flags in CLI_EXT.items())
+        resumed = f"{tmp}/device-resumed.npz"
         sharded = f"{tmp}/sharded.npz"
+        sharded_2d = f"{tmp}/sharded-2x2.npz"
+        runs = (
+            [("device-resumed", argv("device-resumed", *CLI_DEVICE,
+                                     "-max-iter", "5", "-checkpoint", ckpt,
+                                     "-resume"), train_csv)]
+            + [(tag, argv(tag, *flags, "-max-iter", "5"), csv)
+               for tag, flags, csv, _ in fam_runs]
+            + [(tag, argv(tag, *flags), csv) for tag, flags, csv in ext_runs]
+            + [("sharded", argv("sharded", *CLI_SHARDED, "-max-iter", "5"),
+                train_csv),
+               ("sharded-2x2", argv("sharded-2x2", *CLI_MESH2D,
+                                    "-max-iter", "2"), train_csv)])
         t1 = time.perf_counter()
-        trained = cli_side_by_side(tmp, [
-            (tag, ("-cmd", "train", "-model", f"{tmp}/{tag}.npz", *flags,
-                   *(("-max-iter", "5") if x is not None else ())), csv)
-            for tag, flags, csv, x in (*fam_runs, *((*r, None)
-                                                    for r in ext_runs))]
-            + [("sharded", ("-cmd", "train", "-model", sharded, *CLI_COMMON,
-                            *CLI_SHARDED, "-max-iter", "5"), train_csv)])
-        log(f"cli trainings: {len(trained)} side by side in "
+        trained = dict(zip([tag for tag, _, _ in runs],
+                           cli_side_by_side(tmp, runs)))
+        log(f"cli wave 2: {len(runs)} trainings side by side in "
             f"{time.perf_counter() - t1:.2f} s ({card})")
-        for (tag, _, _, x), (secs, _, err) in zip(fam_runs, trained):
-            cli_report(tag, secs, err, f"{tmp}/{tag}.npz", dev, x, ytr,
-                       card)
-        matern, sm2, icm = (f"{tmp}/{tag}.npz" for tag, *_ in fam_runs)
-        B = cli_coregionalization(trained[2][2])
+        cli_report("device-resumed", *trained["device-resumed"][::2],
+                   resumed, dev, Xtr, ytr, card)
+        got, want = cli_hypers(resumed, dev), cli_hypers(full, dev)
+        rel = rel_norm(got, want)
+        same = ("bit-equal to" if torch.equal(got, want)
+                else f"rel {rel:.3e} from")
+        log(f"cli resume: final hypers {same} the uninterrupted device "
+            f"run's ({card})")
+        check("cli resume", rel <= 1e-6, f"hypers off by rel {rel:.3e}")
+        for tag, _, _, x in fam_runs:
+            cli_report(tag, *trained[tag][::2], f"{tmp}/{tag}.npz", dev, x,
+                       ytr, card)
+        B = cli_coregionalization(trained["icm"][2])
         log(f"cli icm coregionalization B: "
             f"{np.array2string(B, precision=4, separator=', ')} ({card})")
         check("cli icm B", B.shape == (ICM_TASKS, ICM_TASKS)
               and bool(np.isfinite(B).all()), f"B of shape {B.shape}")
-        cli_sharded_leg(trained[-1], sharded, full, dev, Xtr, ytr, card)
+        cli_sharded_leg("sharded", trained["sharded"], sharded, full, dev,
+                        Xtr, ytr, card)
+        cli_sharded_leg("sharded-2x2", trained["sharded-2x2"], sharded_2d,
+                        f"{tmp}/device-part.npz", dev, Xtr, ytr, card)
         ext_models = []
-        for (tag, _, _), (secs, _, err) in zip(ext_runs,
-                                               trained[len(fam_runs):]):
-            cli_ext_report(tag, secs, err, card)
+        for tag, _, _ in ext_runs:
+            cli_ext_report(tag, *trained[tag][::2], card)
             if tag != "exact-cg":  # served below: its CG variances
                 ext_models.append((tag, f"{tmp}/{tag}.npz", test_csv))
+        # wave 3: the Laplace modes
+        t1 = time.perf_counter()
+        for (tag, _, _), (secs, _, err) in zip(
+                laplace_runs, cli_side_by_side(tmp, laplace_runs)):
+            cli_ext_report(tag, secs, err, card)
+        log(f"cli wave 3: {len(laplace_runs)} trainings side by side in "
+            f"{time.perf_counter() - t1:.2f} s ({card})")
 
-        cli_laplace_legs(tmp, dev, card, data, Xtr, test_csv)
+        # wave 4: every test
         t1 = time.perf_counter()
         cg_runs = cli_cg_runs(tmp, f"{tmp}/exact-cg.npz", test_csv, Xte)
-        cli_serve(tmp, (("host", host, test_csv),
-                        ("device-resumed", resumed, test_csv),
-                        ("matern52", matern, test_csv),
-                        ("sm2", sm2, test_csv),
-                        ("icm", icm, icm_test_csv), *ext_models), dev, card,
-                  cg_runs)
-        log(f"cli tests: {len(ext_models) + 5 + len(cg_runs)} side by side "
-            f"in {time.perf_counter() - t1:.2f} s ({card})")
+        regression = (("host", host, test_csv),
+                      ("device-resumed", resumed, test_csv),
+                      *((tag, f"{tmp}/{tag}.npz", test_csv)
+                        for tag in ("matern52", "sm2")),
+                      ("icm", f"{tmp}/icm.npz", icm_test_csv),
+                      ("sharded-2x2", sharded_2d, test_csv), *ext_models)
+        laplace = tuple((tag, f"{tmp}/{tag}.npz", test_csv)
+                        for tag, _, _ in laplace_runs)
+        cli_serve(tmp, regression, dev, card, cg_runs, laplace)
+        log(f"cli wave 4: {len(regression) + len(laplace) + len(cg_runs)} "
+            f"tests side by side, checked, in "
+            f"{time.perf_counter() - t1:.2f} s ({card})")
     log(f"cli phase: {time.perf_counter() - t0:.2f} s ({card})")
 
 
 def main() -> int:
     card = device_phase()
     dev = torch.device("cuda", 0)
-    build_phase()
-    kernels_phase(dev)
-    bwd_phase(dev)
+    seconds = {}  # each phase's wall, for the summary line
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    timed("build", build_phase)
+    timed("kernels", kernels_phase, dev)
+    timed("bwd", bwd_phase, dev)
     data = bench_data(dev)
-    rows = slice_phase(dev, card, data)
-    rows.append(step_phase(dev, card, data))
-    fit_phase(dev, card, data)
-    rows.append(roofline_phase(dev, card))
-    restarts_phase(dev, card, data)
-    quickstart_phase(dev, card, data)
-    flagship_phase(dev, card, data)
-    route_phase(dev, card, data)
-    families_phase(dev, card, data)
-    composites_phase(dev, card, data)
-    hetero_phase(dev, card, data)
-    gaussian_ext_phase(dev, card, data)
-    laplace_phase(dev, card, data)
-    classify_ext_phase(dev, card, data)
-    iterative_phase(dev, card, data)
-    hmc_phase(dev, card, data)
-    parallel_phase(dev, card, data)
-    cli_phase(dev, card, data)
+    rows = timed("slice", slice_phase, dev, card, data)
+    rows.append(timed("step", step_phase, dev, card, data))
+    timed("fit", fit_phase, dev, card, data)
+    rows.append(timed("roofline", roofline_phase, dev, card))
+    for name, phase in (("restarts", restarts_phase),
+                        ("quickstart", quickstart_phase),
+                        ("flagship", flagship_phase),
+                        ("route", route_phase),
+                        ("families", families_phase),
+                        ("composites", composites_phase),
+                        ("hetero", hetero_phase),
+                        ("gaussian_ext", gaussian_ext_phase),
+                        ("laplace", laplace_phase),
+                        ("classify_ext", classify_ext_phase),
+                        ("iterative", iterative_phase),
+                        ("hmc", hmc_phase),
+                        ("parallel", parallel_phase),
+                        ("mesh2d", mesh2d_phase),
+                        ("cli", cli_phase)):
+        timed(name, phase, dev, card, data)
+    log(f"phase seconds: {json.dumps(seconds)}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

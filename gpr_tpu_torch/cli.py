@@ -47,9 +47,11 @@ card, 1 on the CPU): each rank runs this command's preparation on the
 parsed rows and fits its share of them with the mesh, and this process
 writes the artifact from rank 0's hypers, on the whole data, as the
 single-device trainers do; SIGINT stops every rank after the same chunk
-and keeps that state, as ``-trainer device`` does.  A 2-D mesh
-(``-devices DxM``) is not ported yet: it passes the JAX package's flag and
-data checks in its order, then exits naming its ROADMAP.md item.  The CG path's probes and anchor rows come from a ``torch.Generator``
+and keeps that state, as ``-trainer device`` does.  ``-devices DxM``
+trains on a 2-D (data x model) mesh of D M ranks
+(``parallel.mesh2d.fit_sharded_2d``, or ``fit_restarts_sharded`` with
+-restarts), the regression model only, as in the JAX package.  The CG
+path's probes and anchor rows come from a ``torch.Generator``
 seeded with ``-seed`` (serving: seeded 0), not from JAX's keys.
 
 Run: ``python3 -m gpr_tpu_torch.cli -cmd train -model m.npz < train.csv``,
@@ -72,13 +74,6 @@ import numpy as np
 import torch
 
 F64 = torch.float64
-#: the ROADMAP.md queue 1 item that ports each mode not ported yet
-_NOT_PORTED = {"-devices DxM": 13}
-
-
-def _not_ported(what: str, item: int):
-    return SystemExit(f"{what} is not ported to gpr_tpu_torch yet "
-                      f"(ROADMAP.md, queue 1 item {item})")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -609,16 +604,26 @@ def _check_labels(args, targets, trials, n):
     return targets, n_classes, target_mean
 
 
-def _refuse_not_ported(args):
-    """Exit naming the ROADMAP.md item of a mode that is not ported yet:
-    the 2-D data x model mesh."""
-    if args.devices is not None and "x" in str(args.devices):
-        raise _not_ported(f"-devices {args.devices} (a 2-D data x model "
-                          "mesh)", _NOT_PORTED["-devices DxM"])
+def _mesh_shape(args) -> tuple[int, int] | None:
+    """(D, M) of -devices DxM; None for -devices N or none."""
+    if args.devices is None or "x" not in str(args.devices):
+        return None
+    try:
+        shape = tuple(int(v) for v in str(args.devices).split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2 or min(shape) < 1:
+        raise SystemExit(f"-devices needs N >= 1 (or DxM), got "
+                         f"{args.devices!r}")
+    return shape
 
 
 def _n_ranks(args, dev) -> int:
-    """-devices N, else every visible card (one rank on the CPU)."""
+    """-devices N or D M of -devices DxM, else every visible card (one rank
+    on the CPU)."""
+    shape = _mesh_shape(args)
+    if shape is not None:
+        return shape[0] * shape[1]
     if args.devices is None:
         return torch.cuda.device_count() if dev.type == "cuda" else 1
     try:
@@ -741,7 +746,6 @@ def _prepare_train(args, dev, data) -> _Prepared:
                          "(device-sharded state is mesh-layout dependent)")
     if args.devices is not None and args.trainer != "sharded":
         raise SystemExit("-devices requires -trainer sharded")
-    _refuse_not_ported(args)
 
     log_sf2 = 2.0 * math.log(args.amplitude)
     X = torch.tensor(inputs, dtype=F64, device=dev)
@@ -904,7 +908,7 @@ def _finish_regression(args, s, trained) -> int:
 
 
 def _train_sharded(args, given, data, dev, s) -> int:
-    """-trainer sharded: the fit on -devices N spawned ranks
+    """-trainer sharded: the fit on -devices N (or D M) spawned ranks
     (``parallel.run_spmd``, each running ``_train_rank`` on the command as
     ``given`` and the parsed rows ``data``), then the artifact from rank
     0's final state, written here on the whole data as the single-device
@@ -920,8 +924,10 @@ def _train_sharded(args, given, data, dev, s) -> int:
     old_handler = signal.signal(signal.SIGINT, lambda *_: stop.set())
     try:
         if args.verbose:
-            print(f"-trainer sharded: {n_ranks} ranks", file=sys.stderr,
-                  flush=True)
+            shape = _mesh_shape(args)
+            layout = "" if shape is None else " (a {}x{} mesh)".format(*shape)
+            print(f"-trainer sharded: {n_ranks} ranks{layout}",
+                  file=sys.stderr, flush=True)
         r, st = run_spmd(_train_rank, n_ranks, given, data, stop)
     finally:
         signal.signal(signal.SIGINT, old_handler)
@@ -937,8 +943,9 @@ def _train_sharded(args, given, data, dev, s) -> int:
 
 def _train_rank(mesh, args, data, stop):
     """One rank of -trainer sharded: the command's preparation on the
-    parsed rows ``data``, then its fit with ``mesh``; returns (the winning
-    start, its final optimizer state).  Rank 0 alone reports and
+    parsed rows ``data``, then its fit with ``mesh`` (the world's 1-D
+    mesh, or with -devices DxM the 2-D mesh made from it); returns (the
+    winning start, its final optimizer state).  Rank 0 alone reports and
     checkpoints.  After each chunk every rank reads rank 0's view of
     ``stop``, so all of them stop after the same one."""
     if mesh.rank != 0:
@@ -952,7 +959,12 @@ def _train_rank(mesh, args, data, stop):
     if s.n_extensions:
         _, _, st, r = _fit_extension(args, s, mesh.device, stopped, mesh)
         return r, st
-    return _fit_on_mesh(args, s, mesh, stopped)
+    shape = _mesh_shape(args)
+    if shape is None:
+        return _fit_on_mesh(args, s, mesh, stopped)
+    from .parallel import make_mesh_2d
+
+    return _fit_on_mesh(args, s, make_mesh_2d(*shape), stopped)
 
 
 def _apply_polish(args, X, y, trained):
@@ -1149,11 +1161,16 @@ def _train_on_device(args, s, dev, stopped):
 
 
 def _fit_on_mesh(args, s, mesh, stopped):
-    """-trainer sharded's regression fit on a rank: ``fit_sharded`` (or
-    ``fit_restarts_sharded`` with -restarts); returns (the winning start,
-    its final state)."""
+    """-trainer sharded's regression fit on a rank: ``fit_sharded``, on a
+    2-D mesh ``fit_sharded_2d`` (or ``fit_restarts_sharded`` with
+    -restarts); returns (the winning start, its final state)."""
     from .optim import Bailout, make_pack
-    from .parallel import fit_restarts_sharded, fit_sharded
+    from .parallel import (
+        Mesh2D,
+        fit_restarts_sharded,
+        fit_sharded,
+        fit_sharded_2d,
+    )
 
     pack = make_pack(*_start(args, s, 0), args.sigma2)
     common = _regression_fit_kw(args, s)
@@ -1169,8 +1186,9 @@ def _fit_on_mesh(args, s, mesh, stopped):
         return rep.winner, st
     on_chunk, last_state = _chunk_watch(args, stopped)
     try:
-        *_, st = fit_sharded(mesh, s.X, s.y, pack, block_size=block_size,
-                             state_callback=on_chunk, **common)
+        fit_one = fit_sharded_2d if isinstance(mesh, Mesh2D) else fit_sharded
+        *_, st = fit_one(mesh, s.X, s.y, pack, block_size=block_size,
+                         state_callback=on_chunk, **common)
     except Bailout:
         st = last_state["st"]
     return 0, st

@@ -18,7 +18,10 @@ rank j holding rows [j n/P, (j+1) n/P)); ``make_sharded_objective``,
 predictors take the whole data and shard it themselves, as the JAX
 package's do.  Outputs that the JAX package returns as a global array come
 back gathered in host row order on every rank.  Where the JAX package
-takes ``(family, ..., params)`` the port takes a kernel module.
+takes ``(family, ..., params)`` the port takes a kernel module.  On a 2-D
+mesh (``spmd.Mesh2D``) ``pad_to_shards``, ``local_rows`` and
+``shard_batch`` split the rows over its data axis, and
+``fit_restarts_sharded`` continues on ``mesh2d.fit_sharded_2d``.
 """
 
 from __future__ import annotations
@@ -70,11 +73,17 @@ __all__ = [
 ]
 
 
-def pad_to_shards(mesh: DataMesh, X, y):
-    """Pad (X, y) to a row count divisible by the mesh size; returns
-    (X, y, mask) with mask marking real rows (in X's dtype)."""
+def _row_mesh(mesh):
+    """The mesh the rows split over: a 2-D mesh's data axis."""
+    return getattr(mesh, "data", mesh)
+
+
+def pad_to_shards(mesh, X, y):
+    """Pad (X, y) to a row count divisible by the mesh size (on a 2-D
+    mesh, its data axis's); returns (X, y, mask) with mask marking real
+    rows (in X's dtype)."""
     n = X.shape[0]
-    pad = (-n) % mesh.size
+    pad = (-n) % _row_mesh(mesh).size
     mask = torch.ones(n, dtype=X.dtype, device=X.device)
     if pad:
         X = torch.cat([X, X.new_zeros(pad, X.shape[1])])
@@ -83,15 +92,18 @@ def pad_to_shards(mesh: DataMesh, X, y):
     return X, y, mask
 
 
-def local_rows(mesh: DataMesh, t):
+def local_rows(mesh, t):
     """This rank's contiguous block of the rows of ``t``, whose row count
-    the mesh size divides, on the rank's device."""
+    the mesh size divides, on the rank's device (on a 2-D mesh, its data
+    member's block)."""
+    mesh = _row_mesh(mesh)
     n = t.shape[0] // mesh.size
     return t[mesh.rank * n:(mesh.rank + 1) * n].to(mesh.device)
 
 
-def shard_batch(mesh: DataMesh, X, y):
-    """This rank's rows of the padded (X, y, mask) (``pad_to_shards``)."""
+def shard_batch(mesh, X, y):
+    """This rank's rows of the padded (X, y, mask) (``pad_to_shards``; on
+    a 2-D mesh its data member's)."""
     return tuple(local_rows(mesh, t) for t in pad_to_shards(mesh, X, y))
 
 
@@ -207,9 +219,10 @@ def sharded_pitc_log_evidence(kernel, mesh: DataMesh, z, sigma2, X, y,
     return evidence_from_stats(inducing, stats, variational=False)
 
 
-def _local_padded(mesh: DataMesh, X):
-    """This rank's rows of X padded to a multiple of the mesh size."""
-    pad = (-X.shape[0]) % mesh.size
+def _local_padded(mesh, X):
+    """This rank's rows of X padded to a multiple of the mesh size (on a
+    2-D mesh, of its data axis)."""
+    pad = (-X.shape[0]) % _row_mesh(mesh).size
     if pad:
         X = torch.cat([X, X.new_zeros(pad, X.shape[1])])
     return local_rows(mesh, X)
@@ -383,7 +396,7 @@ def probe_starts_sharded(mesh: DataMesh, X, y, pack, x0s, *,
     return [_state_of_row(r, like) for r in gathered[:n_starts]]
 
 
-def fit_restarts_sharded(mesh: DataMesh, X, y, pack, x0s, *,
+def fit_restarts_sharded(mesh, X, y, pack, x0s, *,
                          probe_iters: int = 15, variational: bool = False,
                          block_size: int = 8192, normalize: bool = True,
                          step: float = 0.1, tol: float = 0.1,
@@ -393,8 +406,11 @@ def fit_restarts_sharded(mesh: DataMesh, X, y, pack, x0s, *,
                          probe_subsample: int | None = None,
                          probe_seed: int = 0, state_callback=None):
     """Multi-start data-parallel training: the probes split over the ranks
-    (``probe_starts_sharded``), then the best start continues on the
-    row-sharded L-BFGS (``fit_sharded``).  Semantics are
+    (``probe_starts_sharded``; on a 2-D mesh over all D M of them), then
+    the best start continues on the row-sharded L-BFGS (``fit_sharded``;
+    on a 2-D mesh with a model axis above 1, the tensor-parallel
+    ``mesh2d.fit_sharded_2d``, else ``fit_sharded`` over its data axis).
+    Semantics are
     ``optim.fit_restarts``'s: probes rank by (healthy, f); with
     ``probe_subsample`` they score a seeded row subsample and the winner
     restarts on the full data with fresh curvature history, else its
@@ -402,11 +418,12 @@ def fit_restarts_sharded(mesh: DataMesh, X, y, pack, x0s, *,
     final_state, ProbeReport)."""
     from ..optim.lbfgs_device import ProbeReport, _rank_key
 
-    if not isinstance(mesh, DataMesh):
-        raise NotImplementedError(
-            "fit_restarts_sharded continues on a 1-D DataMesh only; the "
-            "2-D (data x model) continuation is not ported to "
-            "gpr_tpu_torch yet (ROADMAP.md, queue 1 item 13)")
+    if isinstance(mesh, DataMesh):
+        continue_on = fit_sharded
+    elif mesh.model.size > 1:
+        from .mesh2d import fit_sharded_2d as continue_on
+    else:
+        continue_on, mesh = fit_sharded, _row_mesh(mesh)
     if f_noise is None:
         f_noise = 5e-7 if X.dtype == torch.float32 else 0.0
     subsampled = probe_subsample is not None and probe_subsample < X.shape[0]
@@ -420,11 +437,11 @@ def fit_restarts_sharded(mesh: DataMesh, X, y, pack, x0s, *,
     # unsharded on the probe rows
     sbs = min(block_size, int(Xp.shape[0]))
     states = probe_starts_sharded(
-        mesh, Xp, yp, pack, x0s, probe_iters=probe_iters,
-        variational=variational, streaming_block_size=sbs,
-        normalize=normalize, step=step, tol=tol, epsabs=epsabs,
-        history=history, f_noise=f_noise, dispatch_iters=dispatch_iters,
-        log_prior=log_prior)
+        getattr(mesh, "all", mesh), Xp, yp, pack, x0s,
+        probe_iters=probe_iters, variational=variational,
+        streaming_block_size=sbs, normalize=normalize, step=step, tol=tol,
+        epsabs=epsabs, history=history, f_noise=f_noise,
+        dispatch_iters=dispatch_iters, log_prior=log_prior)
     report = ProbeReport(float(st.f) for st in states)
     report.probe_evals = sum(st.n_evals for st in states)
     report.probe_iters = sum(st.n_iter for st in states)
@@ -436,7 +453,7 @@ def fit_restarts_sharded(mesh: DataMesh, X, y, pack, x0s, *,
         init_state = None
     else:
         cont_pack, init_state = pack, best._replace(failed=False)
-    kernel, z, sigma2, st = fit_sharded(
+    kernel, z, sigma2, st = continue_on(
         mesh, X, y, cont_pack, variational=variational,
         block_size=block_size, normalize=normalize, step=step, tol=tol,
         epsabs=epsabs, max_iter=max_iter, history=history, f_noise=f_noise,

@@ -1,5 +1,6 @@
 """One process per rank: the port's counterpart of ``jax.shard_map`` over a
-1-D data mesh.  No module of the JAX package corresponds to this one.
+1-D data mesh or a 2-D (data x model) mesh.  No module of the JAX package
+corresponds to this one.
 
 The JAX package runs its data-parallel code as one program over a device
 mesh: ``shard_map`` calls the same function on every shard and
@@ -28,10 +29,22 @@ copy and every row's contribution arrives once.  Every sharded objective
 takes its gradient there.  Inside a custom backward (the IFT solves) the
 hook runs without a graph and is a plain all-reduce.
 
+A 2-D mesh (:func:`make_mesh_2d`, :class:`Mesh2D`) puts rank r at
+(i, j) = divmod(r, M), the row-major device order of ``jax.make_mesh``;
+it holds a :class:`DataMesh` over the D ranks that share j (the data
+axis), one over the M ranks that share i (the model axis) and one over all
+D M.  Every collective's backward is its transpose (``allsum`` and
+``all_gather`` all-reduce the cotangent, ``ppermute`` shifts it back), so
+the rule above holds with P = D M: ``sharded_value_and_grad`` and
+``sharded_grad`` divide by the whole mesh and all-reduce over it.
+
 Lock step: every branch the host takes reads a value that came out of a
 collective (the L-BFGS reads the broadcast value and the all-reduced
 gradient; the Newton line search, EP and CG read all-reduced sums), so no
-rank takes a different number of collectives than another.
+rank takes a different number of collectives than another.  On a 2-D
+mesh every rank also builds the same autograd graph (code that differs by
+rank masks, it does not branch), so the backward's collectives come in the
+same order on every rank.
 """
 
 from __future__ import annotations
@@ -51,8 +64,11 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 #: seconds a collective waits for the other ranks before it raises
 GROUP_TIMEOUT = 120.0
+#: this process's collective timeout (``run_spmd`` sets it in each rank)
+_timeout = GROUP_TIMEOUT
 
 
 def _platform(platform: str | None) -> str:
@@ -130,19 +146,26 @@ class DataMesh:
         gradient rule of the module docstring."""
         return AllSum.apply(x, self)
 
-    def all_gather(self, x):
-        """The ranks' ``x`` stacked along dim 0 in rank order; its
-        backward all-reduces the cotangent and keeps this rank's block."""
-        return AllGather.apply(x, self)
+    def all_gather(self, x, dim: int = 0):
+        """The ranks' ``x`` concatenated along ``dim`` in rank order (dim 1:
+        ``lax.all_gather(..., axis=1, tiled=True)``); its backward
+        all-reduces the cotangent and keeps this rank's block."""
+        return AllGather.apply(x, self, dim)
 
-    def ppermute(self, x):
-        """``x`` sent one rank up the ring: rank j receives rank j-1's."""
-        if self.size == 1:
+    def ppermute(self, x, shift: int = 1):
+        """``x`` sent ``shift`` ranks up the ring: rank j receives rank
+        j - shift's.  Its backward sends the cotangent ``shift`` ranks
+        down."""
+        if shift % self.size == 0:
             return x
+        return PPermute.apply(x, self, shift)
+
+    def _shift(self, x, shift: int):
+        """One ring transfer of ``x`` (no autograd)."""
         src = x.detach().contiguous()
         out = torch.empty_like(src)
-        up = self.ranks[(self.rank + 1) % self.size]
-        down = self.ranks[(self.rank - 1) % self.size]
+        up = self.ranks[(self.rank + shift) % self.size]
+        down = self.ranks[(self.rank - shift) % self.size]
 
         def op(s, r):
             reqs = dist.batch_isend_irecv([
@@ -170,11 +193,11 @@ class AllSum(torch.autograd.Function):
 
 
 class AllGather(torch.autograd.Function):
-    """(x, mesh) -> the ranks' x stacked along dim 0."""
+    """(x, mesh, dim) -> the ranks' x concatenated along dim."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh, ctx.rows = mesh, x.shape[0]
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.width = mesh, dim, x.shape[dim]
         src = x.detach().contiguous()
         out = [torch.empty_like(src) for _ in range(mesh.size)]
 
@@ -182,34 +205,61 @@ class AllGather(torch.autograd.Function):
             dist.all_gather(list(o), s, group=mesh.group)
 
         mesh._run("all_gather", op, src, *out)
-        return torch.cat(out)
+        return torch.cat(out, dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         g = ctx.mesh.all_reduce_(g.detach().clone().contiguous())
-        r = ctx.mesh.rank * ctx.rows
-        return g[r:r + ctx.rows], None
+        return g.narrow(ctx.dim, ctx.mesh.rank * ctx.width,
+                        ctx.width), None, None
+
+
+class PPermute(torch.autograd.Function):
+    """(x, mesh, shift) -> rank j - shift's x; the backward shifts the
+    cotangent back (the transpose of a permutation is its inverse)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, shift):
+        ctx.mesh, ctx.shift = mesh, shift
+        return mesh._shift(x, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._shift(g, -ctx.shift), None, None
+
+
+def allsum_many(mesh: DataMesh, tensors):
+    """Each tensor of ``tensors`` summed over the ranks, in one collective
+    (carried in the first one's dtype)."""
+    dtype = tensors[0].dtype
+    flat = mesh.allsum(torch.cat([t.reshape(-1).to(dtype)
+                                  for t in tensors]))
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape).to(t.dtype))
+        at += t.numel()
+    return out
 
 
 def allsum_fields(mesh: DataMesh, obj):
     """``obj`` (a dataclass of tensors, e.g. ``StreamStats``) with every
     field summed over the ranks in one collective."""
     names = [f.name for f in dataclasses.fields(obj)]
-    vals = [getattr(obj, n) for n in names]
-    dtype = vals[0].dtype
-    flat = mesh.allsum(torch.cat([v.reshape(-1).to(dtype) for v in vals]))
-    out, at = {}, 0
-    for n, v in zip(names, vals):
-        out[n] = flat[at:at + v.numel()].reshape(v.shape).to(v.dtype)
-        at += v.numel()
-    return dataclasses.replace(obj, **out)
+    return dataclasses.replace(obj, **dict(zip(names, allsum_many(
+        mesh, [getattr(obj, n) for n in names]))))
 
 
-def sharded_grad(mesh: DataMesh, value, inputs):
+def _whole(mesh):
+    """The mesh over every rank of ``mesh``: a 2-D mesh's ``all``."""
+    return getattr(mesh, "all", mesh)
+
+
+def sharded_grad(mesh, value, inputs):
     """Gradients of the replicated scalar ``value`` with respect to the
     replicated leaves ``inputs``: the backward of value / P, all-reduced in
-    one collective (module docstring).  Leaves the value does not reach
-    get zeros."""
+    one collective (module docstring; on a 2-D mesh P = D M).  Leaves the
+    value does not reach get zeros."""
+    mesh = _whole(mesh)
     got = torch.autograd.grad(value / mesh.size, inputs, allow_unused=True)
     got = [torch.zeros_like(x) if g is None else g
            for g, x in zip(got, inputs)]
@@ -223,17 +273,17 @@ def sharded_grad(mesh: DataMesh, value, inputs):
     return tuple(out)
 
 
-def sharded_value_and_grad(mesh: DataMesh, f, x, *args):
+def sharded_value_and_grad(mesh, f, x, *args):
     """(f(x, *args), its gradient in x) of a replicated scalar objective:
     the value is rank 0's, broadcast, and the gradient all-reduced, so
     every rank reads the same bits.  ``functools.partial(
     sharded_value_and_grad, mesh, f)`` is an ``fg_of`` for
-    ``optim.fit_packed_objective``."""
+    ``optim.fit_packed_objective``; ``mesh`` a 1-D or a 2-D mesh."""
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
         val = f(x, *args)
         (g,) = sharded_grad(mesh, val, (x,))
-    return mesh.broadcast(val.detach()), g
+    return _whole(mesh).broadcast(val.detach()), g
 
 
 def make_mesh(n_devices: int | None = None) -> DataMesh | None:
@@ -246,13 +296,100 @@ def make_mesh(n_devices: int | None = None) -> DataMesh | None:
         raise ValueError(f"a mesh of {n} ranks in a world of {world}")
     rank = dist.get_rank()
     ranks = tuple(range(n))
-    group = dist.group.WORLD if n == world else dist.new_group(list(ranks))
+    group = _group(ranks, world)
     if rank >= n:
         return None
-    platform = _platform(None)
-    return DataMesh(group=group, rank=rank, size=n,
-                    device=rank_device(platform, rank),
+    return _member(group, ranks, rank)
+
+
+def _group(ranks, world: int):
+    """The process group of ``ranks`` (collective: every rank of the
+    world calls it, member or not)."""
+    if len(ranks) == world:
+        return dist.group.WORLD
+    return dist.new_group(list(ranks),
+                          timeout=datetime.timedelta(seconds=_timeout))
+
+
+def _member(group, ranks, rank: int) -> DataMesh:
+    """This rank's DataMesh over ``group``."""
+    return DataMesh(group=group, rank=ranks.index(rank), size=len(ranks),
+                    device=rank_device(_platform(None), rank),
                     backend=dist.get_backend(group), ranks=ranks)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh2D:
+    """A 2-D (data x model) mesh: this rank's :class:`DataMesh` over the
+    ranks that share its column j (``data``: the rows' axis, ``psum``
+    over ``DATA_AXIS``), over those that share its row i (``model``: the
+    inducing columns' axis) and over all of them (``all``).  It stands
+    where the JAX package takes a 2-D ``Mesh``."""
+
+    data: DataMesh
+    model: DataMesh
+    all: DataMesh
+
+    @property
+    def i(self) -> int:
+        return self.data.rank
+
+    @property
+    def j(self) -> int:
+        return self.model.rank
+
+    @property
+    def device(self) -> torch.device:
+        return self.all.device
+
+    @property
+    def backend(self) -> str:
+        return self.all.backend
+
+    @property
+    def size(self) -> int:
+        return self.all.size
+
+    @property
+    def shape(self) -> dict:
+        """{DATA_AXIS: D, MODEL_AXIS: M}, as ``Mesh.shape``."""
+        return {DATA_AXIS: self.data.size, MODEL_AXIS: self.model.size}
+
+    @property
+    def staged(self) -> dict:
+        """The three meshes' host-staged collectives, by axis and name."""
+        return {f"{axis}.{name}": count for axis in ("data", "model", "all")
+                for name, count in getattr(self, axis).staged.items()}
+
+
+def make_mesh_2d(n_data: int, n_model: int) -> Mesh2D | None:
+    """The (n_data, n_model) mesh over the first n_data * n_model ranks of
+    this process's world: rank r at (i, j) = divmod(r, n_model), data
+    member i holding rows [i n/D, (i+1) n/D) (``sharded.shard_batch``).
+    Every rank of the world must call it (it creates all D + M + 1 groups,
+    in one order, members or not); ranks outside the mesh get None."""
+    world = dist.get_world_size()
+    n = n_data * n_model
+    if n_data < 1 or n_model < 1:
+        raise ValueError(f"mesh {n_data}x{n_model}: both axes need >= 1")
+    if n > world:
+        raise ValueError(f"mesh {n_data}x{n_model} needs {n} devices, "
+                         f"have {world}")
+    all_ranks = tuple(range(n))
+    columns = [tuple(i * n_model + j for i in range(n_data))
+               for j in range(n_model)]
+    rows = [tuple(i * n_model + j for j in range(n_model))
+            for i in range(n_data)]
+    g_all = _group(all_ranks, world)
+    g_data = [_group(r, world) for r in columns]
+    g_model = [_group(r, world) for r in rows]
+    rank = dist.get_rank()
+    if rank >= n:
+        return None
+    i, j = divmod(rank, n_model)
+    return Mesh2D(data=_member(g_data[j], columns[j], rank),
+                  model=_member(g_model[i], rows[i], rank),
+                  all=_member(g_all, all_ranks, rank))
 
 
 def _to_cpu(obj):
@@ -280,7 +417,9 @@ def _error_payload(exc, tb):
 
 def _worker(fn, rank, n_ranks, store_path, platform, backend, timeout,
             args, results):
+    global _timeout
     os.environ["GPR_TPU_PLATFORM"] = platform
+    _timeout = timeout
     try:
         if platform == "cpu":
             torch.set_num_threads(1)

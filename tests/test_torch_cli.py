@@ -8,9 +8,9 @@ device`` (dense and streaming), ``-restarts``, ``-polish`` and the sparse
 ``-loo``; ``-cmd test`` prints the same text whichever package wrote the
 artifact and whichever serves it; ``-checkpoint``/``-resume`` lands
 bit-equal on the uninterrupted run; bad command lines get the JAX
-package's messages and the 2-D mesh (-devices DxM), not ported yet, exits
-naming its ROADMAP.md item (-trainer sharded -devices N:
-``test_torch_cli_parallel.py``).  The Laplace modes:
+package's messages (-trainer sharded -devices N:
+``test_torch_cli_parallel.py``; -devices DxM:
+``test_torch_cli_mesh2d.py``).  The Laplace modes:
 ``test_torch_cli_laplace.py``; EP and multi-class:
 ``test_torch_cli_classify.py``; the iterative exact GP (-exact -cg):
 ``test_torch_cli_cg.py``.  The port's CSV binding is held against the JAX
@@ -407,26 +407,6 @@ def test_test_messages(data, tmp_path):
         got = run("torch", ["-cmd", "test", *argv], stdin)
         assert got[0] != 0 and got == run("jax", ["-cmd", "test", *argv],
                                           stdin)
-
-
-NOT_PORTED = {
-    "-devices 2x2": (["-trainer", "sharded", "-devices", "2x2"], 13),
-    "-trainer sharded -devices 1x2": (["-trainer", "sharded", "-devices",
-                                       "1x2"], 13),
-}
-
-
-@pytest.mark.parametrize("case", sorted(NOT_PORTED))
-def test_not_ported_flags(case, tmp_path):
-    flags, item = NOT_PORTED[case]
-    # a task-id column and integer targets that every flag accepts
-    csv = "".join(f"{i * 0.1:.1f},{i % 2},{i % 2 + 1}\n"
-                  for i in range(20))
-    rc, out, err = run("torch", ["-cmd", "train", "-model",
-                                 str(tmp_path / "m.npz"), *flags], csv)
-    assert rc == 1 and out == ""
-    assert f"queue 1 item {item}" in err and case.split()[-1] in err
-    assert not os.path.exists(tmp_path / "m.npz")
 
 
 def test_no_gpu_no_fallback(monkeypatch, tmp_path):

@@ -10,8 +10,7 @@ sharded -devices 2`` and of the port's ``-trainer device`` within 1e-6
 relative, and it serves.  A ^C to a sharded run (a real process, its
 ranks spawned) stops every rank after the same chunk and writes the last
 completed state, as ``-trainer device`` does.  ``-devices DxM`` (the 2-D
-mesh) exits naming its ROADMAP.md item
-(``test_torch_cli.py::test_not_ported_flags``).
+mesh): ``test_torch_cli_mesh2d.py``.
 """
 
 import os

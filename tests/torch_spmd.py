@@ -5,7 +5,7 @@ them by import path.  Each builds its tensors from the numpy draws it is
 given, runs the sharded functions on its mesh and returns what the tests
 compare, on every rank alike.  One world of three ranks serves P = 3 and,
 through ``make_mesh(2)``, P = 2 (its third rank idles there), so a test
-module spawns one world."""
+module spawns one world; the 2-D mesh's modules spawn one of four."""
 
 import numpy as np
 import torch
@@ -15,12 +15,16 @@ from gpr_tpu_torch.optim import make_pack
 from gpr_tpu_torch.parallel import (
     fit_restarts_sharded,
     fit_sharded,
+    fit_sharded_2d,
+    fully_distributed_predict,
     make_mesh,
+    make_mesh_2d,
     make_sharded_objective,
     shard_batch,
     sharded_grad,
     sharded_iter_solve,
     sharded_log_evidence,
+    sharded_log_evidence_2d,
     sharded_log_evidence_tsqr,
     sharded_pitc_log_evidence,
     sharded_predict_means,
@@ -289,3 +293,217 @@ def check_mesh_fit(kind, X, y, Z, rtol=1e-8, **kw):
         want = want.detach()
         err = float(torch.max(torch.abs(got - want)))
         assert err <= rtol * max(float(torch.max(torch.abs(want))), 1e-300)
+
+
+# ---------------------------------------------------------------------------
+# The 2-D (data x model) mesh: ``tests/test_torch_dist_chol.py`` and
+# ``tests/test_torch_mesh2d.py``.  One world of four ranks serves 2x2 and,
+# through ``make_mesh_2d``, 1x2, 2x1 and 1x4 (ranks outside a mesh skip
+# it).
+
+def per_shape(shapes, case, *args):
+    """{(D, M): case(mesh, *args)} on this rank for each shape (every rank
+    makes every mesh, in one order; ranks outside one skip its case)."""
+    out = {}
+    for shape in shapes:
+        mesh = make_mesh_2d(*shape)
+        if mesh is not None:
+            out[shape] = case(mesh, *args)
+    return out
+
+
+def dist_chol_draws(seed=0, m=16, k=3):
+    """An SPD A = I + W W'/m, right-hand sides (m, 4k) (k columns a member
+    at p = 4, 2k at p = 2), a square W, a symmetric G, a vector u and the
+    gradient case's leaves."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((m, m))
+    h = rng.standard_normal((m, m))
+    return {"A": np.eye(m) + w @ w.T / m, "B": rng.standard_normal((m, 4 * k)),
+            "W": rng.standard_normal((m, m)), "G": h @ h.T / m,
+            "u": rng.standard_normal(m), "L": rng.standard_normal((m, m)),
+            "H": rng.standard_normal((m, 4)), "C": rng.standard_normal((m, m))}
+
+
+def dist_chol_value(D, L, u, H, chol, log_det, lower_t, whiten_dot, cols):
+    """log det(A) + |R^-T u|^2 + sum(R^-T G R^-1 * C) with A = L L'/m + I
+    = R'R, G = H H', from the column-block functions (or dense ones, with
+    ``cols`` every column); ``whiten_dot(r, g, c)`` gives the last term
+    from blocks of R, G and C."""
+    m = L.shape[0]
+    A = L @ L.T / m + torch.eye(m, dtype=F64)
+    r = chol(A[:, cols])
+    tt = lower_t(r, u)
+    return (log_det(r) + torch.dot(tt, tt)
+            + whiten_dot(r, (H @ H.T)[:, cols], t(D["C"])[:, cols]))
+
+
+def _dist_chol_case(mesh, D):
+    from gpr_tpu_torch.parallel import dist_chol as dc
+
+    model = mesh.model
+    p, j = model.size, model.rank
+    A, B, W, G = (t(D[name]) for name in ("A", "B", "W", "G"))
+    m_t = A.shape[0] // p
+    cols = slice(j * m_t, (j + 1) * m_t)
+    k = B.shape[1] // p
+    own = B[:, j * k:(j + 1) * k]
+
+    def gather(x):
+        return model.all_gather(x, dim=1)
+
+    r_j = dc.dist_cholesky_upper(A[:, cols], model)
+    R = gather(r_j)
+    res = {
+        "chol": R, "log_det": dc.dist_log_det_tri(r_j, model),
+        "lower_t": dc.dist_solve_lower_t(r_j, t(D["u"]), model),
+        "lower_cols": gather(dc.dist_solve_lower_cols(r_j, own, model)),
+        "upper_cols": gather(dc.dist_solve_upper_cols(r_j, own, model)),
+        "inverse": gather(dc.dist_spd_inverse_cols(r_j, model)),
+        "transpose": gather(dc.dist_transpose_cols(W[:, cols], model)),
+        "whiten": gather(dc.dist_whiten_cols(r_j, G[:, cols], model)),
+        "whiten_replicated": gather(dc.whiten_cols_replicated(
+            R, G[:, cols], model)),
+    }
+    leaves = [t(D[name]).requires_grad_(True) for name in ("L", "u", "H")]
+    val = dist_chol_value(
+        D, *leaves, lambda a: dc.dist_cholesky_upper(a, model),
+        lambda r: dc.dist_log_det_tri(r, model),
+        lambda r, u: dc.dist_solve_lower_t(r, u, model),
+        lambda r, g, c: model.allsum(torch.sum(
+            dc.dist_whiten_cols(r, g, model) * c)), cols)
+    res["grad"] = (val.detach(), sharded_grad(mesh, val, leaves))
+    return res
+
+
+def dist_chol_ranks(world, D):
+    return per_shape(((2, 2), (1, 4)), _dist_chol_case, D)
+
+
+MODES_2D = {  # sharded_log_evidence_2d's modes by name
+    "replicated": {},
+    "epilogue": {"epilogue": "distributed"},
+    "inducing-raw": {"inducing": "distributed", "factorization": "raw"},
+    "inducing-whitened": {"inducing": "distributed",
+                          "factorization": "whitened"},
+}
+F32_MODES_2D = ("replicated", "epilogue", "inducing-whitened")
+
+
+def mesh2d_draws(seed=0, n=37, d=3):
+    """``regression_draws`` (37 rows, which D = 2 does not divide) in 3
+    inputs with 8 and 13 inducing points (K(Z, Z)'s condition ~1e3: the
+    fully distributed mode forms Km^-1 and B^-1, whose rounding a 1e6
+    condition lifts above 1e-10) and se_fat's rows."""
+    D = regression_draws(seed, n=n, d=d, m=8)
+    rng = np.random.default_rng(seed + 1)
+    D["Z13"] = rng.standard_normal((13, d))
+    D["X_fat"] = rng.standard_normal((n, 3))
+    return D
+
+
+def _vg_2d(mesh, pack, data, dtype=F64, **kw):
+    """(value, packed gradient) of the 2-D evidence at the pack's x0."""
+    def f(x):
+        kernel, z, s2 = pack.unpack(x)
+        return sharded_log_evidence_2d(kernel, mesh, z, s2, *data,
+                                       block_size=BLOCK, **kw)
+
+    return sharded_value_and_grad(mesh, f, pack.x0)
+
+
+def _mesh2d_case(mesh, D, fat):
+    from gpr_tpu_torch.convert import from_jax_params
+
+    dev = mesh.device
+    X, y = t(D["X"]), t(D["y"])
+    data = shard_batch(mesh, X, y)
+    full = mesh.shape == {"data": 2, "model": 2}
+    res = {}
+
+    def pack_of(Z, dtype=F64):
+        return make_pack(SeIso(D["log_ell"], D["log_sf2"], device=dev,
+                               dtype=dtype), t(Z, dev, dtype), D["sigma2"])
+
+    for mode, kw in MODES_2D.items():
+        for var in ((False, True) if full else (False,)):
+            res[f"ev/{mode}/{var}"] = _vg_2d(mesh, pack_of(D["Z"]), data,
+                                             variational=var, **kw)
+    if mesh.shape["model"] == 2:
+        for mode in ("inducing-raw", "inducing-whitened"):
+            res[f"m13/{mode}"] = _vg_2d(mesh, pack_of(D["Z13"]), data,
+                                        **MODES_2D[mode])
+        res["predict/13"] = fully_distributed_predict(
+            regression_kernel(D, dev), mesh, t(D["Z13"], dev), D["sigma2"],
+            X, y, t(D["Xs"]), block_size=BLOCK)
+    if not full:
+        return res
+    res["predict/8"] = fully_distributed_predict(
+        regression_kernel(D, dev), mesh, t(D["Z"], dev), D["sigma2"], X, y,
+        t(D["Xs"]), block_size=BLOCK)
+    # se_fat (tproj, hetero and multiscales on), variational
+    kernel, z, s2 = from_jax_params(fat["params"], fat["Z"], 0.5,
+                                    device=dev, dtype=F64, family="se_fat")
+    fat_data = shard_batch(mesh, t(D["X_fat"]), y)
+    for mode in ("replicated", "inducing-raw"):
+        res[f"se_fat/{mode}"] = _vg_2d(mesh, make_pack(kernel, z, 0.5),
+                                       fat_data, variational=True,
+                                       **MODES_2D[mode])
+    # f32: the whitened-direct Gram, its distributed epilogue, and the
+    # fully distributed whitened factorization
+    data32 = tuple(v.float() for v in data)
+    for mode in F32_MODES_2D:
+        res[f"f32/{mode}"] = _vg_2d(mesh, pack_of(D["Z"], torch.float32),
+                                    data32, variational=True,
+                                    **MODES_2D[mode])
+    # the gradient over the kernel's leaves, z and sigma2 directly
+    kernel = regression_kernel(D, dev)
+    z = t(D["Z"], dev).requires_grad_(True)
+    s2 = torch.tensor(D["sigma2"], dtype=F64, device=dev, requires_grad=True)
+    val = sharded_log_evidence_2d(kernel, mesh, z, s2, *data,
+                                  block_size=BLOCK)
+    res["trap"] = (val.detach(), sharded_grad(
+        mesh, val, (kernel.log_ell, kernel.log_sf2, z, s2)))
+    try:
+        sharded_log_evidence_2d(kernel, mesh, z[:7], s2, *data)
+        res["refusal"] = None
+    except ValueError as exc:
+        res["refusal"] = str(exc)
+    # training: 3 iterations, and 3 starts probed over the 4 ranks
+    pack = pack_of(D["Z"])
+    *_, st = fit_sharded_2d(mesh, X, y, pack, block_size=BLOCK, max_iter=3,
+                            epsabs=0.0)
+    xs = mesh.all.all_gather(st.x[None])
+    res["fit"] = (st.x, st.f, st.n_iter, st.n_evals,
+                  bool(torch.all(xs == xs[0])))
+    x0s = [pack.x0, pack.x0 + 0.1, pack.x0 - 0.05]
+    *_, st, rep = fit_restarts_sharded(
+        mesh, X, y, pack, x0s, probe_iters=2, max_iter=4, block_size=BLOCK,
+        epsabs=0.0)
+    xs = mesh.all.all_gather(st.x[None])
+    res["restarts"] = (st.x, st.f, list(rep), rep.winner, rep.probe_iters,
+                       rep.probe_evals, rep.cont_iters, rep.cont_evals,
+                       bool(torch.all(xs == xs[0])))
+    return res
+
+
+def mesh2d_ranks(world, D, fat):
+    out = per_shape(((2, 2), (1, 2), (2, 1)), _mesh2d_case, D, fat)
+    try:  # a mesh larger than the world
+        make_mesh_2d(3, 2)
+        out["too_big"] = None
+    except ValueError as exc:
+        out["too_big"] = str(exc)
+    return out
+
+
+def raising_rank_2d(world, bad_rank, D):
+    """On a 2x2 mesh rank ``bad_rank`` raises at once; the others wait in
+    the 2-D evidence's collectives for it."""
+    mesh = make_mesh_2d(2, 2)
+    if world.rank == bad_rank:
+        raise ValueError(f"rank {bad_rank} fails on purpose")
+    X, y = t(D["X"]), t(D["y"])
+    return sharded_log_evidence_2d(regression_kernel(D, mesh.device), mesh,
+                                   t(D["Z"]), D["sigma2"],
+                                   *shard_batch(mesh, X, y))
