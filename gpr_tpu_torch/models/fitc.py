@@ -35,6 +35,7 @@ from ..numerics.linalg import (
     solve_tri,
     solve_tri_right,
 )
+from ..tracing import span
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -129,11 +130,12 @@ def choose_kmeans_inputs(generator, kernel, X: torch.Tensor,
 def calc_inducing(kernel, z: torch.Tensor,
                   jitter: float | None = None) -> InducingState:
     """K(Z, Z), its jittered Cholesky and log-det."""
-    km = kernel.k_upper(z)
-    chol_km = cholesky_upper(km, jitter)
-    return InducingState(
-        z=z, km=km, chol_km=chol_km, log_det_km=log_det_tri(chol_km)
-    )
+    with span("gpr.step.inducing"):
+        km = kernel.k_upper(z)
+        chol_km = cholesky_upper(km, jitter)
+        return InducingState(
+            z=z, km=km, chol_km=chol_km, log_det_km=log_det_tri(chol_km)
+        )
 
 
 def _resolve_factorization(factorization: str | None, n: int, m: int) -> str:

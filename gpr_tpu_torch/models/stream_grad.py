@@ -34,6 +34,7 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels.base import hyper_leaves, kernel_with
 from ..numerics.linalg import matmul, rows_sqr_norm
+from ..tracing import span
 
 
 def _two_sum(hi, lo, x):
@@ -250,17 +251,20 @@ class StreamStatsFn(torch.autograd.Function):
         z, u_inv, sigma2, X, y, mask, *hypers = ctx.saved_tensors
         need_y = ctx.needs_input_grad[7]
         cot = (gbar, ubar, lds_bar, yiy_bar, isr_bar)
-        if ctx.impl == "reference":
-            view = kernel_with(ctx.kernel, dict(zip(ctx.names, hypers)))
-            xb, yb, maskb = _pad_blocks(X, y, mask, ctx.block_size)
-            *grads, y_bar = _backward_scan(view, z, u_inv, sigma2, xb, yb,
-                                           maskb, cot, z.dtype, need_y)
-            if y_bar is not None:
-                y_bar = y_bar.reshape(-1)[:X.shape[0]]
-        else:
-            *grads, y_bar = fused_stats.se_iso_stream_bwd_fused(
-                *hypers, z, u_inv, sigma2, X, y, mask, *cot,
-                block_size=ctx.block_size, acc_dtype=z.dtype, need_y=need_y)
+        with span("gpr.step.stats_bwd", rows=X.shape[0]):
+            if ctx.impl == "reference":
+                view = kernel_with(ctx.kernel, dict(zip(ctx.names, hypers)))
+                xb, yb, maskb = _pad_blocks(X, y, mask, ctx.block_size)
+                *grads, y_bar = _backward_scan(view, z, u_inv, sigma2, xb,
+                                               yb, maskb, cot, z.dtype,
+                                               need_y)
+                if y_bar is not None:
+                    y_bar = y_bar.reshape(-1)[:X.shape[0]]
+            else:
+                *grads, y_bar = fused_stats.se_iso_stream_bwd_fused(
+                    *hypers, z, u_inv, sigma2, X, y, mask, *cot,
+                    block_size=ctx.block_size, acc_dtype=z.dtype,
+                    need_y=need_y)
         *h_bars, zb, uib, s2b = (
             g.to(like.dtype)
             for g, like in zip(grads, (*hypers, z, u_inv, sigma2)))

@@ -59,6 +59,7 @@ from ..numerics.linalg import (
     rows_sqr_norm,
     solve_tri,
 )
+from ..tracing import span
 from .fitc import LOG_2PI, InducingState, calc_inducing
 from .stream_grad import StreamStatsFn, _forward_scan, _pad_blocks
 
@@ -143,33 +144,35 @@ def stream_stats(kernel, inducing: InducingState, sigma2, X, y, *,
     ``sigma2`` and ``y`` (see the module docstring for ``impl`` and
     ``grad_impl``).
     """
-    z = inducing.z
-    per_row = torch.as_tensor(sigma2).ndim == 1
-    leaves = hyper_leaves(kernel)[1]
-    grad = torch.is_grad_enabled() and any(
-        torch.is_tensor(t) and t.requires_grad
-        for t in (inducing.chol_km, sigma2, X, y, *leaves))
-    impl = _resolve_impl(impl, X, kernel, grad_impl, z=z, per_row=per_row,
-                         grad=grad)
-    u_inv = inv_tri_upper(inducing.chol_km)
-    if grad_impl == "ad" or per_row:
-        xb, yb, maskb = _pad_blocks(X, y, mask, block_size)
-        if per_row:  # blocked like y, zero (and masked) past the rows
-            sigma2 = _pad_blocks(X, torch.as_tensor(sigma2, device=z.device),
-                                 mask, block_size)[1]
-        return StreamStats(*_forward_scan(kernel, z, u_inv, sigma2, xb, yb,
-                                          maskb, z.dtype, per_row))
-    sigma2 = torch.as_tensor(sigma2, dtype=z.dtype, device=z.device)
-    if impl != "reference":
-        # the kernels take row-major data (solve_triangular's result on
-        # CUDA is column-major); no copy where it already is
-        if mask is not None:
-            mask = mask.to(X.dtype)
-        z, u_inv, X, y, mask = (None if t is None else t.contiguous()
-                                for t in (z, u_inv, X, y, mask))
-    return StreamStats(*StreamStatsFn.apply(
-        kernel, block_size, impl, z, u_inv, sigma2, X, y, mask, *leaves,
-    ))
+    with span("gpr.step.stats", rows=X.shape[0]):
+        z = inducing.z
+        per_row = torch.as_tensor(sigma2).ndim == 1
+        leaves = hyper_leaves(kernel)[1]
+        grad = torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad
+            for t in (inducing.chol_km, sigma2, X, y, *leaves))
+        impl = _resolve_impl(impl, X, kernel, grad_impl, z=z,
+                             per_row=per_row, grad=grad)
+        u_inv = inv_tri_upper(inducing.chol_km)
+        if grad_impl == "ad" or per_row:
+            xb, yb, maskb = _pad_blocks(X, y, mask, block_size)
+            if per_row:  # blocked like y, zero (and masked) past the rows
+                sigma2 = _pad_blocks(
+                    X, torch.as_tensor(sigma2, device=z.device), mask,
+                    block_size)[1]
+            return StreamStats(*_forward_scan(kernel, z, u_inv, sigma2, xb,
+                                              yb, maskb, z.dtype, per_row))
+        sigma2 = torch.as_tensor(sigma2, dtype=z.dtype, device=z.device)
+        if impl != "reference":
+            # the kernels take row-major data (solve_triangular's result on
+            # CUDA is column-major); no copy where it already is
+            if mask is not None:
+                mask = mask.to(X.dtype)
+            z, u_inv, X, y, mask = (None if t is None else t.contiguous()
+                                    for t in (z, u_inv, X, y, mask))
+        return StreamStats(*StreamStatsFn.apply(
+            kernel, block_size, impl, z, u_inv, sigma2, X, y, mask,
+            *leaves))
 
 
 def _whitened_factor(inducing, stats):
@@ -213,9 +216,10 @@ def _dewhiten(inducing, r_tilde, t):
 def evidence_from_stats(inducing, stats: StreamStats, *,
                         variational: bool = False) -> torch.Tensor:
     """l = l1 + l2 from the reduced statistics: the O(m^3) epilogue."""
-    r_tilde, t = _whitened_solve(inducing, stats)
-    l1, l2 = _evidence_terms(stats, r_tilde, t, variational=variational)
-    return (l1 + l2).to(inducing.km.dtype)
+    with span("gpr.step.epilogue"):
+        r_tilde, t = _whitened_solve(inducing, stats)
+        l1, l2 = _evidence_terms(stats, r_tilde, t, variational=variational)
+        return (l1 + l2).to(inducing.km.dtype)
 
 
 def streaming_log_evidence(kernel, z, sigma2, X, y, *,
@@ -302,11 +306,12 @@ def streaming_coeffs(kernel, z, sigma2, X, y, *, block_size=8192,
 @torch.no_grad()
 def predict_means_blocked(kernel, z, coeffs, X, *, block_size=8192):
     """Batch mean prediction, one (block, m) Ktm tile at a time."""
-    out = torch.empty(X.shape[0], dtype=coeffs.dtype, device=X.device)
-    for i in range(0, X.shape[0], block_size):
-        x_b = X[i:i + block_size]
-        out[i:i + block_size] = matmul(kernel.k_cross(x_b, z), coeffs)
-    return out
+    with span("gpr.predict.means", root=True, points=X.shape[0]):
+        out = torch.empty(X.shape[0], dtype=coeffs.dtype, device=X.device)
+        for i in range(0, X.shape[0], block_size):
+            x_b = X[i:i + block_size]
+            out[i:i + block_size] = matmul(kernel.k_cross(x_b, z), coeffs)
+        return out
 
 
 @torch.no_grad()
@@ -314,13 +319,15 @@ def predict_variances_blocked(kernel, z, chol_km, r_mat, X, sigma2, *,
                               predictive=True, block_size=8192):
     """Batch variances kt_diag - rowsq(Ktm U^-1) + rowsq(Ktm R^-1), plus
     sigma2 when ``predictive``."""
-    u_inv = inv_tri_upper(chol_km)
-    r_inv = inv_tri_upper(r_mat)
-    out = torch.empty(X.shape[0], dtype=r_mat.dtype, device=X.device)
-    for i in range(0, X.shape[0], block_size):
-        x_b = X[i:i + block_size]
-        ktm = kernel.k_cross(x_b, z)
-        v = (kernel.k_diag(x_b) - rows_sqr_norm(matmul(ktm, u_inv))
-             + rows_sqr_norm(matmul(ktm, r_inv)))
-        out[i:i + block_size] = v + sigma2 if predictive else v
-    return out
+    with span("gpr.predict.variances", root=True, points=X.shape[0]):
+        with span("gpr.predict.inverses"):
+            u_inv = inv_tri_upper(chol_km)
+            r_inv = inv_tri_upper(r_mat)
+        out = torch.empty(X.shape[0], dtype=r_mat.dtype, device=X.device)
+        for i in range(0, X.shape[0], block_size):
+            x_b = X[i:i + block_size]
+            ktm = kernel.k_cross(x_b, z)
+            v = (kernel.k_diag(x_b) - rows_sqr_norm(matmul(ktm, u_inv))
+                 + rows_sqr_norm(matmul(ktm, r_inv)))
+            out[i:i + block_size] = v + sigma2 if predictive else v
+        return out

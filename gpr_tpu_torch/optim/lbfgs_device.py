@@ -4,10 +4,13 @@
 There the loop, the curvature history and the strong-Wolfe line search are
 ``lax`` control flow under one ``jit``.  Here they are Python loops over
 tensors that stay on the objective's device; each branch reads one scalar
-back, and every objective evaluation already synchronises once (the
-forward kernel's wrapper reads its scalars), so the host loop adds no
-round trip that matters.  The arithmetic, the acceptance rules and the
-counters are the JAX package's, so the two give the same iterates in f64.
+back through ``tracing.host_read``, and every objective evaluation already
+synchronises once (the forward kernel's wrapper reads its scalars).  Under
+a profiler the spans ``gpr.optim.iter`` (its ``.direction``,
+``.line_search`` and ``.update`` on the timeline), ``gpr.optim.eval`` and
+``gpr.optim.host_read`` show what the loop and its reads cost.  The
+arithmetic, the acceptance rules and the counters are the JAX package's,
+so the two give the same iterates in f64.
 
 Semantics: minimize, stop on |g| < epsabs or max_iter, strong Wolfe
 (c1 = 1e-4, c2 = tol) with a secant zoom, ``f_noise`` slack, a best-point
@@ -22,6 +25,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from ..tracing import host_read, span
 
 
 class LBFGSDeviceState(NamedTuple):
@@ -90,48 +95,55 @@ def _wolfe_zoom(fg, x, f0, g0, p, alpha0, c1, c2, max_evals, f_noise=0.0):
     # Armijo or overshot, so the minimum stays bracketed.
     while not ok and evals < max_evals:
         f_a, g_a, dphi_a = phi(a)
-        bad = not bool(torch.isfinite(f_a))
-        armijo_fail = bad or bool(f_a > f0 + c1 * a * dphi0 + f_noise) or (
-            evals > 0 and stage == 0 and bool(f_a >= phi_lo + f_noise))
-        # the strong-Wolfe window, two-sided: below it the step still
-        # descends (advance a_lo), above it the step overshot (shrink a_hi)
-        curv_ok = bool((dphi_a >= c2 * dphi0) & (dphi_a <= -c2 * dphi0))
-        overshoot = not armijo_fail and bool(dphi_a > -c2 * dphi0)
-        accept = not armijo_fail and curv_ok
-        too_far = armijo_fail or overshoot
-        to_zoom = stage == 0 and too_far
-        shrink = stage == 1 and too_far
-        if not too_far and not accept:
-            a_lo, phi_lo, dphi_lo = a, f_a, dphi_a
-        if to_zoom or shrink:
-            a_hi, dphi_hi = a, dphi_a
-        if to_zoom:
-            stage = 1
-        evals += 1
-        ok = accept
-        if accept or bool(f_a < best_f):
-            best_a = a
-        best_f = torch.minimum(best_f, torch.full_like(best_f, float("inf"))
-                               if bad else f_a)
-        if ok:
-            break
-        if stage == 0:
-            a = 2.0 * a
-        else:
-            # secant for the root of dphi between (a_lo, dphi_lo) and
-            # (a_hi, dphi_hi), kept inside the bracket, else bisection
-            w = a_hi - a_lo
-            secant = a_lo - dphi_lo * w / (dphi_hi - dphi_lo)
-            use_secant = bool(torch.isfinite(secant)
-                              & (secant >= a_lo + 0.1 * w)
-                              & (secant <= a_hi - 0.1 * w))
-            a = secant if use_secant else a_lo + 0.5 * w
+        # the step's tests and the next trial, between evaluations
+        with span("gpr.optim.line_search"):
+            bad = not host_read(torch.isfinite(f_a))
+            armijo_fail = (
+                bad or host_read(f_a > f0 + c1 * a * dphi0 + f_noise)
+                or (evals > 0 and stage == 0
+                    and host_read(f_a >= phi_lo + f_noise)))
+            # the strong-Wolfe window, two-sided: below it the step still
+            # descends (advance a_lo), above it the step overshot (shrink
+            # a_hi)
+            curv_ok = host_read((dphi_a >= c2 * dphi0)
+                                & (dphi_a <= -c2 * dphi0))
+            overshoot = not armijo_fail and host_read(dphi_a > -c2 * dphi0)
+            accept = not armijo_fail and curv_ok
+            too_far = armijo_fail or overshoot
+            to_zoom = stage == 0 and too_far
+            shrink = stage == 1 and too_far
+            if not too_far and not accept:
+                a_lo, phi_lo, dphi_lo = a, f_a, dphi_a
+            if to_zoom or shrink:
+                a_hi, dphi_hi = a, dphi_a
+            if to_zoom:
+                stage = 1
+            evals += 1
+            ok = accept
+            if accept or host_read(f_a < best_f):
+                best_a = a
+            best_f = torch.minimum(
+                best_f, torch.full_like(best_f, float("inf")) if bad else f_a)
+            if ok:
+                break
+            if stage == 0:
+                a = 2.0 * a
+            else:
+                # secant for the root of dphi between (a_lo, dphi_lo) and
+                # (a_hi, dphi_hi), kept inside the bracket, else bisection
+                w = a_hi - a_lo
+                secant = a_lo - dphi_lo * w / (dphi_hi - dphi_lo)
+                use_secant = host_read(torch.isfinite(secant)
+                                       & (secant >= a_lo + 0.1 * w)
+                                       & (secant <= a_hi - 0.1 * w))
+                a = secant if use_secant else a_lo + 0.5 * w
     # Without Wolfe acceptance, fall back to the best finite point seen
     # (sufficient decrease only), else fail.  On acceptance (f, g) at the
     # step are already in hand; the fallback evaluates at best_a.
     if ok:
         return a, f_a, g_a, True, evals
-    fallback_ok = bool(torch.isfinite(best_f)) and bool(best_f < f0 + f_noise)
+    fallback_ok = (host_read(torch.isfinite(best_f))
+                   and host_read(best_f < f0 + f_noise))
     f_f, g_f, _ = phi(best_a)
     return best_a, f_f, g_f, fallback_ok, evals + 1
 
@@ -147,48 +159,51 @@ def _fresh_state(x0, f0, g0, history):
 
 
 def _lbfgs_step(fg, st, *, step, tol, history, max_ls_evals, f_noise):
-    p = _two_loop(st.g, st.s_hist, st.y_hist, st.rho, st.head, history)
-    # not a descent direction: restart with steepest descent
-    if not bool(torch.dot(p, st.g) < 0):
-        p = -st.g
-    one = torch.ones((), dtype=st.x.dtype, device=st.x.device)
-    if bool(st.rho[(st.head - 1) % history] == 0.0):
-        gnorm = torch.linalg.norm(st.g)
-        alpha0 = torch.minimum(one, step / torch.clamp(gnorm, min=1e-30))
-    else:
-        alpha0 = one
+    with span("gpr.optim.direction"):
+        p = _two_loop(st.g, st.s_hist, st.y_hist, st.rho, st.head, history)
+        # not a descent direction: restart with steepest descent
+        if not host_read(torch.dot(p, st.g) < 0):
+            p = -st.g
+        one = torch.ones((), dtype=st.x.dtype, device=st.x.device)
+        if host_read(st.rho[(st.head - 1) % history] == 0.0):
+            gnorm = torch.linalg.norm(st.g)
+            alpha0 = torch.minimum(one, step / torch.clamp(gnorm, min=1e-30))
+        else:
+            alpha0 = one
     a, f_new, g_new, ok, ls_evals = _wolfe_zoom(
         fg, st.x, st.f, st.g, p, alpha0, 1e-4, tol, max_ls_evals, f_noise)
 
-    s = a * p
-    yv = g_new - st.g
-    sy = torch.dot(s, yv)
-    good_pair = ok and bool(
-        sy > 1e-12 * torch.linalg.norm(s) * torch.linalg.norm(yv))
-    s_hist, y_hist, rho, head = st.s_hist, st.y_hist, st.rho, st.head
-    if good_pair:
-        h = head % history
-        s_hist, y_hist, rho = s_hist.clone(), y_hist.clone(), rho.clone()
-        s_hist[h] = s
-        y_hist[h] = yv
-        rho[h] = 1.0 / torch.clamp(sy, min=1e-30)
-        head = (head + 1) % history
-    # A line-search failure along a quasi-Newton direction drops the
-    # curvature history (retry from steepest descent); only a failure with
-    # empty history is terminal.
-    have_hist = bool(torch.any(st.rho > 0.0))
-    if not ok and have_hist:
-        s_hist, y_hist = torch.zeros_like(s_hist), torch.zeros_like(y_hist)
-        rho, head = torch.zeros_like(rho), 0
-    return LBFGSDeviceState(
-        x=st.x + s if ok else st.x,
-        f=f_new if ok else st.f,
-        g=g_new if ok else st.g,
-        s_hist=s_hist, y_hist=y_hist, rho=rho, head=head,
-        n_iter=st.n_iter + 1,
-        failed=not ok and not have_hist,
-        n_evals=st.n_evals + ls_evals,
-    )
+    with span("gpr.optim.update"):
+        s = a * p
+        yv = g_new - st.g
+        sy = torch.dot(s, yv)
+        good_pair = ok and host_read(
+            sy > 1e-12 * torch.linalg.norm(s) * torch.linalg.norm(yv))
+        s_hist, y_hist, rho, head = st.s_hist, st.y_hist, st.rho, st.head
+        if good_pair:
+            h = head % history
+            s_hist, y_hist, rho = s_hist.clone(), y_hist.clone(), rho.clone()
+            s_hist[h] = s
+            y_hist[h] = yv
+            rho[h] = 1.0 / torch.clamp(sy, min=1e-30)
+            head = (head + 1) % history
+        # A line-search failure along a quasi-Newton direction drops the
+        # curvature history (retry from steepest descent); only a failure
+        # with empty history is terminal.
+        have_hist = host_read(torch.any(st.rho > 0.0))
+        if not ok and have_hist:
+            s_hist = torch.zeros_like(s_hist)
+            y_hist = torch.zeros_like(y_hist)
+            rho, head = torch.zeros_like(rho), 0
+        return LBFGSDeviceState(
+            x=st.x + s if ok else st.x,
+            f=f_new if ok else st.f,
+            g=g_new if ok else st.g,
+            s_hist=s_hist, y_hist=y_hist, rho=rho, head=head,
+            n_iter=st.n_iter + 1,
+            failed=not ok and not have_hist,
+            n_evals=st.n_evals + ls_evals,
+        )
 
 
 def minimize_lbfgs_device(
@@ -216,13 +231,17 @@ def minimize_lbfgs_device(
     st = (_fresh_state(x0, *fg(x0), history) if init_state is None
           else init_state)
     start = st.n_iter
-    while (bool(torch.linalg.norm(st.g) >= epsabs)
+    while (host_read(torch.linalg.norm(st.g) >= epsabs)
            and st.n_iter < max_iter and not st.failed
-           and bool(torch.isfinite(st.f))
+           and host_read(torch.isfinite(st.f))
            and (dispatch_iters is None
                 or st.n_iter - start < dispatch_iters)):
-        st = _lbfgs_step(fg, st, step=step, tol=tol, history=history,
-                         max_ls_evals=max_ls_evals, f_noise=f_noise)
+        # in memory only, as an evaluation: a profiler range as long as
+        # that slows the reduction of a traced benchmark run, which scans
+        # back over the longest host range for each idle gap
+        with span("gpr.optim.iter", on_timeline=False):
+            st = _lbfgs_step(fg, st, step=step, tol=tol, history=history,
+                             max_ls_evals=max_ls_evals, f_noise=f_noise)
     return st
 
 
@@ -234,9 +253,11 @@ def value_and_grad(f):
 
     def fg_of(x, *data):
         x = x.detach().requires_grad_(True)
-        with torch.enable_grad():
+        with span("gpr.optim.eval", root=True, on_timeline=False), \
+                torch.enable_grad():
             val = f(x, *data)
-            (g,) = torch.autograd.grad(val, x)
+            with span("gpr.step.backward"):
+                (g,) = torch.autograd.grad(val, x)
         return val.detach(), g
 
     return fg_of
@@ -289,16 +310,16 @@ def _chunk_loop(chunk, st, X, y, max_iter, epsabs, f_noise,
     is flat).  Chunk-level detection is robust where a per-iteration
     counter is not: L-BFGS plateaus for a few iterations while rebuilding
     history, then accelerates."""
-    f_prev = float(st.f)
+    f_prev = host_read(st.f)
     while True:
         st = chunk(st, X, y)
         if state_callback is not None:
             state_callback(st)
         if (st.n_iter >= max_iter or st.failed
-                or not bool(torch.isfinite(st.f))
-                or float(torch.linalg.norm(st.g)) < epsabs):
+                or not host_read(torch.isfinite(st.f))
+                or host_read(torch.linalg.norm(st.g)) < epsabs):
             break
-        f_now = float(st.f)
+        f_now = host_read(st.f)
         if f_prev - f_now <= 10.0 * f_noise:
             break  # noise-floor stall: no chunk-level progress
         f_prev = f_now

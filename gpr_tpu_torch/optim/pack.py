@@ -22,6 +22,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from ..kernels.base import hyper_fields, kernel_with
+from ..tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,18 +103,19 @@ def make_pack(kernel, z0, sigma2_0, *, learn_sigma2: bool = True,
     x0 = torch.cat([torch.log(sigma2_0)[None], vec]) if learn_sigma2 else vec
 
     def unpack(x):
-        if learn_sigma2:
-            sigma2, rest = torch.exp(x[0]), x[1:]
-        else:
-            sigma2, rest = sigma2_0, x
-        values = dict(values0)
-        at = 0
-        for name in free:
-            k = values0[name].numel()
-            values[name] = rest[at:at + k].reshape(values0[name].shape)
-            at += k
-        z = rest[at:].reshape(z0.shape) if learn_inducing else z0
-        return kernel_with(kernel, values), z, sigma2
+        with span("gpr.optim.unpack"):
+            if learn_sigma2:
+                sigma2, rest = torch.exp(x[0]), x[1:]
+            else:
+                sigma2, rest = sigma2_0, x
+            values = dict(values0)
+            at = 0
+            for name in free:
+                k = values0[name].numel()
+                values[name] = rest[at:at + k].reshape(values0[name].shape)
+                at += k
+            z = rest[at:].reshape(z0.shape) if learn_inducing else z0
+            return kernel_with(kernel, values), z, sigma2
 
     return HyperPack(
         x0=x0, unpack=unpack, n_hypers=int(x0.shape[0]),

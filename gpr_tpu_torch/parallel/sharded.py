@@ -47,6 +47,7 @@ from ..numerics.linalg import (
     solve_tri,
     solve_tri_right,
 )
+from ..tracing import host_read
 from .spmd import (
     DATA_AXIS,
     DataMesh,
@@ -383,9 +384,9 @@ def probe_starts_sharded(mesh: DataMesh, X, y, pack, x0s, *,
     rows = []
     for x0 in x0s[mesh.rank * per:(mesh.rank + 1) * per]:
         st = _fresh_state(x0, *fg(x0), history)
-        while (bool(torch.linalg.norm(st.g) >= epsabs)
+        while (host_read(torch.linalg.norm(st.g) >= epsabs)
                and st.n_iter < probe_iters and not st.failed
-               and bool(torch.isfinite(st.f))):
+               and host_read(torch.isfinite(st.f))):
             st = minimize_lbfgs_device(
                 fg, st.x, step=step, tol=tol, epsabs=epsabs,
                 max_iter=probe_iters, history=history, f_noise=f_noise,

@@ -63,6 +63,8 @@ import traceback
 import torch
 import torch.distributed as dist
 
+from ..tracing import span
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 #: seconds a collective waits for the other ranks before it raises
@@ -130,15 +132,19 @@ class DataMesh:
 
     def all_reduce_(self, t):
         """Sum ``t`` over the ranks, in place (no autograd)."""
-        self._run("all_reduce",
-                  lambda x: dist.all_reduce(x, group=self.group), t)
+        with span("gpr.parallel.all_reduce",
+                  bytes=t.numel() * t.element_size()):
+            self._run("all_reduce",
+                      lambda x: dist.all_reduce(x, group=self.group), t)
         return t
 
     def broadcast(self, x, src: int = 0):
         """A copy of rank ``src``'s ``x`` on every rank (no autograd)."""
         t = x.detach().clone().contiguous()
-        self._run("broadcast", lambda h: dist.broadcast(
-            h, self.ranks[src], group=self.group), t)
+        with span("gpr.parallel.broadcast",
+                  bytes=t.numel() * t.element_size()):
+            self._run("broadcast", lambda h: dist.broadcast(
+                h, self.ranks[src], group=self.group), t)
         return t
 
     def allsum(self, x):
@@ -260,7 +266,9 @@ def sharded_grad(mesh, value, inputs):
     one collective (module docstring; on a 2-D mesh P = D M).  Leaves the
     value does not reach get zeros."""
     mesh = _whole(mesh)
-    got = torch.autograd.grad(value / mesh.size, inputs, allow_unused=True)
+    with span("gpr.step.backward"):
+        got = torch.autograd.grad(value / mesh.size, inputs,
+                                  allow_unused=True)
     got = [torch.zeros_like(x) if g is None else g
            for g, x in zip(got, inputs)]
     dtype = got[0].dtype
@@ -280,10 +288,11 @@ def sharded_value_and_grad(mesh, f, x, *args):
     sharded_value_and_grad, mesh, f)`` is an ``fg_of`` for
     ``optim.fit_packed_objective``; ``mesh`` a 1-D or a 2-D mesh."""
     x = x.detach().requires_grad_(True)
-    with torch.enable_grad():
-        val = f(x, *args)
-        (g,) = sharded_grad(mesh, val, (x,))
-    return _whole(mesh).broadcast(val.detach()), g
+    with span("gpr.optim.eval", root=True, on_timeline=False):
+        with torch.enable_grad():
+            val = f(x, *args)
+            (g,) = sharded_grad(mesh, val, (x,))
+        return _whole(mesh).broadcast(val.detach()), g
 
 
 def make_mesh(n_devices: int | None = None) -> DataMesh | None:

@@ -2,9 +2,10 @@
 logging.  The counterpart of ``gpr_tpu/utils.py`` (the reference's aux
 layer, SURVEY.md section 5):
 
-  * ``timing``: wall-clock printf (lib/utils.ml:50-55), and
-    ``profile_trace``, a ``torch.profiler`` trace of a region (JAX's
-    ``jax.profiler`` hook);
+  * ``timing``: wall-clock printf (lib/utils.ml:50-55) of a region the
+    card has finished, and ``profile_trace``, a ``torch.profiler`` trace of
+    a region (JAX's ``jax.profiler`` hook) with the program's spans
+    (``tracing``);
   * debug-gated invariant checks (lib/utils.ml:34,118-192), cheap
     assertions toggled by ``config.debug``, and ``debug_nans``, PyTorch's
     anomaly mode (JAX's ``jax_debug_nans``);
@@ -25,15 +26,26 @@ import numpy as np
 import torch
 
 from .config import config
+from .tracing import span
 
 
 @contextlib.contextmanager
 def timing(label: str, stream=sys.stderr):
-    """Wall-clock timing context (reference Utils.timing, lib/utils.ml:50-55)."""
+    """Wall-clock timing context (reference Utils.timing, lib/utils.ml:50-55).
+
+    Where CUDA is in use the card is drained at both ends, so the time is
+    the region's work and not its enqueue; under a profiler the region is
+    a span ``gpr.timing: <label>``."""
+    sync = torch.cuda.is_initialized()
+    if sync:
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        yield
+        with span(f"gpr.timing: {label}"):
+            yield
     finally:
+        if sync:
+            torch.cuda.synchronize()
         print(f"{label}: {time.perf_counter() - t0:.3f}s", file=stream)
 
 
@@ -41,7 +53,9 @@ def timing(label: str, stream=sys.stderr):
 def profile_trace(logdir: str):
     """``torch.profiler`` around a region, the card's activity included
     where there is one; the trace lands in ``logdir/trace.json`` (Chrome
-    trace format) and the profiler is yielded for ``key_averages()``."""
+    trace format) and the profiler is yielded for ``key_averages()``.  The
+    program's spans (``gpr.*``) are in the trace as host ranges, and in
+    ``tracing.recorded()`` until a span finds the profiler off."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
